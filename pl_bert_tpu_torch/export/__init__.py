@@ -1,1 +1,2 @@
-"""Weights across the JAX and PyTorch packages (bridge.py)."""
+"""Weights across the JAX and PyTorch packages, in the reference's torch
+naming (bridge.py)."""

@@ -1,1 +1,2 @@
-"""The ALBERT encoder (albert.py) and the inference API (inference.py)."""
+"""The ALBERT encoder, its training forward and the phoneme-only model
+(albert.py), and the inference API (inference.py)."""

@@ -1,27 +1,40 @@
 """ALBERT encoder in PyTorch, the counterpart of ``pl_bert_tpu/models/albert.py``.
 
 A shared-layer ALBERT (one layer applied ``num_hidden_layers`` times,
-factorized embedding vocab → embedding_size → hidden_size), forward only:
-the serving path. The training forward, ``PhonemeOnlyModel``,
+factorized embedding vocab → embedding_size → hidden_size), its serving
+forward and its training forward (``deterministic=False``: dropout, and
+gradients through the kernels' ``autograd.Function``s), and
+``PhonemeOnlyModel``, the encoder with the masked-phoneme head.
 ``MultiTaskModel``, int8 and remat come with later slices.
 
 Submodules carry HF ``AlbertModel``'s names, so ``state_dict()`` keys are
 exactly the names of ``pl_bert_tpu/export/to_hf.py:28-76`` and a
 reference ``.pth`` loads with ``strict=True`` and no renaming.
 
-Parameters stay fp32. The forward runs on a *weight set*: the
+Parameters stay fp32. The serving forward runs on a *weight set*: the
 compute-dtype copies of the weights (Wq|Wk|Wv packed for the attention
 kernel, matrices in the compute dtype, LayerNorm affine and kernel
 biases in fp32), made once per load by :meth:`AlbertModel.compute_weights`
 and not per call. A caller that swaps weights while forwards are in
 flight (the serving encoder) passes the set explicitly and rebinds it;
-a plain ``model(ids, mask)`` builds one and caches it until the
-parameters change.
+a plain ``model(ids, mask)`` makes one from the current parameters.
+The training forward makes its own set once per forward, inside
+autograd (:meth:`AlbertModel.train_weights`): the fp32 parameters in
+the kernel layout, whose gradients come back fp32 and are summed over
+the layer's applications in fp32, beside compute-dtype copies without
+gradients for the kernels to read. The dense layers cast their fp32
+weights per application, as flax does, so their gradients are rounded
+per application and summed in fp32, as in JAX.
 
 The attention block and both dropout+add+LayerNorm sites run the
 hand-written kernels (``ops/attention_block.py``, ``ops/fused_ln.py``)
 unless ``attention_impl`` is ``eager`` (or the JAX value ``xla``), which
-runs their plain versions on any device.
+runs their plain versions on any device, under autograd when training.
+
+Dropout draws one seed per site per layer application per forward —
+the embedding, then (attention, first LayerNorm, second LayerNorm) for
+each application — as host ints (:func:`draw_dropout_seeds`), the
+counterpart of ``_dropout_rate_seed`` (pl_bert_tpu/models/albert.py:110-119).
 """
 
 from __future__ import annotations
@@ -32,11 +45,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pl_bert_tpu_torch.ops.attention import resolve_impl, self_attention
+from pl_bert_tpu_torch.ops.attention import (
+    resolve_impl,
+    self_attention,
+    self_attention_train,
+)
 from pl_bert_tpu_torch.ops.attention_block import pack_weights
 from pl_bert_tpu_torch.ops.fused_ln import (
     dropout_add_layernorm,
     dropout_add_layernorm_plain,
+    dropout_add_layernorm_train,
 )
 
 
@@ -60,7 +78,7 @@ class AlbertConfig:
     @classmethod
     def from_params(cls, p, dtype: torch.dtype = torch.float32) -> "AlbertConfig":
         """From any object with ``ModelParams``' attribute names
-        (``pl_bert_tpu.config.ModelParams``, or another AlbertConfig)."""
+        (``pl_bert_tpu_torch.config.ModelParams``, or another AlbertConfig)."""
         return cls(
             vocab_size=int(p.vocab_size),
             embedding_size=int(p.embedding_size),
@@ -110,6 +128,29 @@ def _ln_weights(ln: nn.LayerNorm) -> dict:
     return {"g": ln.weight.float(), "b": ln.bias.float()}
 
 
+def _linear(x, w: dict, dtype):
+    """A dense layer in the compute dtype; a training set's fp32 weights
+    are cast here, per application (a serving set's already are)."""
+    return F.linear(x, w["w"].to(dtype), w["b"].to(dtype))
+
+
+def draw_dropout_seeds(generator: torch.Generator, num_layers: int) -> list[int]:
+    """One int32 seed per dropout site of a training forward: the
+    embedding, then (attention, first LayerNorm, second LayerNorm) for
+    each of ``num_layers`` applications; host ints from ``generator``."""
+    return torch.randint(0, 2**31 - 1, (1 + 3 * num_layers,), generator=generator).tolist()
+
+
+def _dropout(x, seed, rate: float):
+    """Embedding dropout (no kernel in the JAX package either): a mask
+    from a ``torch.Generator`` on ``x``'s device seeded with ``seed``."""
+    if seed is None or rate <= 0.0:
+        return x
+    gen = torch.Generator(device=x.device).manual_seed(int(seed))
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x * (1.0 / (1.0 - rate)), 0.0).to(x.dtype)
+
+
 class AlbertEmbeddings(nn.Module):
     """word + position + token-type embeddings at ``embedding_size``:
     fp32 tables and fp32 LayerNorm, output cast to the compute dtype."""
@@ -134,7 +175,7 @@ class AlbertEmbeddings(nn.Module):
             "ln": _ln_weights(self.LayerNorm),
         }
 
-    def forward(self, input_ids, token_type_ids, position_ids, w: dict):
+    def forward(self, input_ids, token_type_ids, position_ids, w: dict, seed=None):
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[-1], device=input_ids.device)[None]
         if token_type_ids is None:
@@ -147,7 +188,15 @@ class AlbertEmbeddings(nn.Module):
         x = F.layer_norm(
             x, (x.shape[-1],), w["ln"]["g"], w["ln"]["b"], self.cfg.layer_norm_eps
         )
-        return x.to(self.cfg.dtype)
+        return _dropout(x.to(self.cfg.dtype), seed, self.cfg.dropout)
+
+    def train_weights(self) -> dict:
+        return {
+            "word": self.word_embeddings.weight,
+            "position": self.position_embeddings.weight,
+            "token_type": self.token_type_embeddings.weight,
+            "ln": {"g": self.LayerNorm.weight, "b": self.LayerNorm.bias},
+        }
 
 
 class AlbertSelfAttention(nn.Module):
@@ -175,19 +224,51 @@ class AlbertSelfAttention(nn.Module):
         return {"wqkv": wqkv, "bqkv": bqkv, "wo": wo, "bo": bo,
                 "ln": _ln_weights(self.LayerNorm)}
 
-    def forward(self, hidden, attention_bias, segment_ids, w: dict):
-        cfg = self.cfg
-        out = self_attention(
-            self.impl, hidden, w["wqkv"], w["bqkv"], w["wo"], w["bo"],
-            cfg.num_attention_heads, bias=attention_bias,
-            segment_ids=segment_ids, out_dtype=cfg.dtype,
+    def train_weights(self, dtype) -> dict:
+        """The fp32 parameters in the kernel layout, inside autograd,
+        and (``wqkv``, ``wo``) their compute-dtype copies without
+        gradients."""
+        wqkv32 = torch.cat(
+            [self.query.weight.T, self.key.weight.T, self.value.weight.T], dim=1
         )
-        return _add_layernorm(self.impl, out, hidden, w["ln"], cfg.layer_norm_eps)
+        wo32 = self.dense.weight.T
+        return {
+            "wqkv32": wqkv32,
+            "bqkv": torch.cat([self.query.bias, self.key.bias, self.value.bias]),
+            "wo32": wo32, "bo": self.dense.bias,
+            "wqkv": wqkv32.detach().to(dtype).contiguous(),
+            "wo": wo32.detach().to(dtype).contiguous(),
+            "ln": {"g": self.LayerNorm.weight, "b": self.LayerNorm.bias},
+        }
+
+    def forward(self, hidden, attention_bias, segment_ids, w: dict, seeds=None):
+        cfg = self.cfg
+        if seeds is None:
+            out = self_attention(
+                self.impl, hidden, w["wqkv"], w["bqkv"], w["wo"], w["bo"],
+                cfg.num_attention_heads, bias=attention_bias,
+                segment_ids=segment_ids, out_dtype=cfg.dtype,
+            )
+            return _add_layernorm(self.impl, out, hidden, w["ln"], cfg.layer_norm_eps)
+        out = self_attention_train(
+            self.impl, hidden, w, cfg.num_attention_heads, bias=attention_bias,
+            segment_ids=segment_ids, dropout_rate=cfg.dropout, dropout_seed=seeds[0],
+        )
+        return _add_layernorm(
+            self.impl, out, hidden, w["ln"], cfg.layer_norm_eps, True, seeds[1],
+            cfg.dropout,
+        )
 
 
-def _add_layernorm(impl: str, x, residual, ln: dict, eps: float):
-    fn = dropout_add_layernorm if impl == "kernel" else dropout_add_layernorm_plain
-    return fn(x, residual, ln["g"], ln["b"], eps=eps)
+def _add_layernorm(impl: str, x, residual, ln: dict, eps: float, train: bool = False,
+                   seed=None, rate: float = 0.0):
+    """Dropout + residual add + LayerNorm; ``train`` runs the kernel path
+    through K5/K6's autograd Function."""
+    if impl == "kernel":
+        fn = dropout_add_layernorm_train if train else dropout_add_layernorm
+    else:
+        fn = dropout_add_layernorm_plain
+    return fn(x, residual, ln["g"], ln["b"], seed=seed, rate=rate, eps=eps)
 
 
 class AlbertLayer(nn.Module):
@@ -212,13 +293,25 @@ class AlbertLayer(nn.Module):
             "ln": _ln_weights(self.full_layer_layer_norm),
         }
 
-    def forward(self, hidden, attention_bias, segment_ids, w: dict):
-        attn_out = self.attention(hidden, attention_bias, segment_ids, w["attention"])
-        ffn = F.linear(attn_out, w["ffn"]["w"], w["ffn"]["b"])
-        ffn = self.act(ffn)
-        ffn = F.linear(ffn, w["ffn_output"]["w"], w["ffn_output"]["b"])
+    def train_weights(self, dtype) -> dict:
+        ln = self.full_layer_layer_norm
+        return {
+            "attention": self.attention.train_weights(dtype),
+            "ffn": {"w": self.ffn.weight, "b": self.ffn.bias},
+            "ffn_output": {"w": self.ffn_output.weight, "b": self.ffn_output.bias},
+            "ln": {"g": ln.weight, "b": ln.bias},
+        }
+
+    def forward(self, hidden, attention_bias, segment_ids, w: dict, seeds=None):
+        """``seeds`` (attention, first LN, second LN) makes it the
+        training forward; None the serving one."""
+        dtype = self.cfg.dtype
+        attn_out = self.attention(hidden, attention_bias, segment_ids, w["attention"], seeds)
+        ffn = self.act(_linear(attn_out, w["ffn"], dtype))
+        ffn = _linear(ffn, w["ffn_output"], dtype)
         return _add_layernorm(
-            self.attention.impl, ffn, attn_out, w["ln"], self.cfg.layer_norm_eps
+            self.attention.impl, ffn, attn_out, w["ln"], self.cfg.layer_norm_eps,
+            seeds is not None, None if seeds is None else seeds[2], self.cfg.dropout,
         )
 
 
@@ -249,10 +342,20 @@ class AlbertEncoder(nn.Module):
             "layer": self.layer.compute_weights(dtype),
         }
 
-    def forward(self, embeddings, attention_bias, segment_ids, w: dict):
-        hidden = F.linear(embeddings, w["mapping"]["w"], w["mapping"]["b"])
-        for _ in range(self.cfg.num_hidden_layers):
-            hidden = self.layer(hidden, attention_bias, segment_ids, w["layer"])
+    def train_weights(self, dtype) -> dict:
+        m = self.embedding_hidden_mapping_in
+        return {"mapping": {"w": m.weight, "b": m.bias},
+                "layer": self.layer.train_weights(dtype)}
+
+    def forward(self, embeddings, attention_bias, segment_ids, w: dict, seeds=None):
+        """``seeds``: one (attention, LN, LN) triple per application for
+        the training forward; None for the serving one."""
+        hidden = _linear(embeddings, w["mapping"], self.cfg.dtype)
+        for i in range(self.cfg.num_hidden_layers):
+            hidden = self.layer(
+                hidden, attention_bias, segment_ids, w["layer"],
+                None if seeds is None else seeds[i],
+            )
         return hidden
 
 
@@ -278,9 +381,9 @@ class AlbertModel(nn.Module):
 
     @torch.no_grad()
     def compute_weights(self, device=None) -> dict:
-        """The weight set a forward runs on: compute-dtype copies made
-        from the current parameters, moved to ``device`` (default: where
-        the parameters are)."""
+        """The serving weight set: compute-dtype copies made from the
+        current parameters, moved to ``device`` (default: where the
+        parameters are)."""
         dtype = self.cfg.dtype
         w = {
             "embeddings": self.embeddings.compute_weights(dtype),
@@ -288,6 +391,15 @@ class AlbertModel(nn.Module):
             "pooler": _linear_weights(self.pooler, dtype),
         }
         return move_weights(w, device) if device is not None else w
+
+    def train_weights(self) -> dict:
+        """The training weight set, made once per forward inside
+        autograd (see the module docstring)."""
+        return {
+            "embeddings": self.embeddings.train_weights(),
+            "encoder": self.encoder.train_weights(self.cfg.dtype),
+            "pooler": {"w": self.pooler.weight, "b": self.pooler.bias},
+        }
 
     def forward(
         self,
@@ -298,25 +410,100 @@ class AlbertModel(nn.Module):
         position_ids=None,
         deterministic: bool = True,
         weights: dict | None = None,
+        dropout_seeds=None,
     ):
-        if not deterministic:
-            raise NotImplementedError(
-                "the training forward (dropout) comes with the training slice"
-            )
-        # a caller that runs many forwards (PhonemeEncoder) passes the
-        # weight set it made once; without one, it is made from the
-        # current parameters on every call
-        w = self.compute_weights() if weights is None else weights
-        emb = self.embeddings(input_ids, token_type_ids, position_ids, w["embeddings"])
+        """``deterministic=False`` is the training forward: dropout at
+        rate ``cfg.dropout`` with ``dropout_seeds`` (see
+        :func:`draw_dropout_seeds`; unused at rate 0), and the kernels'
+        autograd Functions. ``weights``: a serving weight set made once
+        (the serving encoder passes one); without one, it is made from
+        the current parameters on every call."""
+        cfg = self.cfg
+        seeds = emb_seed = None
+        if deterministic:
+            w = self.compute_weights() if weights is None else weights
+        else:
+            w = self.train_weights()
+            n = cfg.num_hidden_layers
+            if cfg.dropout > 0.0:
+                if dropout_seeds is None or len(dropout_seeds) != 1 + 3 * n:
+                    raise ValueError(
+                        f"the training forward needs {1 + 3 * n} dropout seeds "
+                        "(draw_dropout_seeds)"
+                    )
+                emb_seed = dropout_seeds[0]
+                seeds = [tuple(dropout_seeds[1 + 3 * i: 4 + 3 * i]) for i in range(n)]
+            else:
+                seeds = [(None, None, None)] * n
+        emb = self.embeddings(input_ids, token_type_ids, position_ids, w["embeddings"],
+                              emb_seed)
         bias = (
             attention_bias_from_mask(attention_mask)
             if attention_mask is not None else None
         )
-        hidden = self.encoder(emb, bias, segment_ids, w["encoder"])
-        pooled = torch.tanh(
-            F.linear(hidden[:, 0], w["pooler"]["w"], w["pooler"]["b"])
-        )
+        hidden = self.encoder(emb, bias, segment_ids, w["encoder"], seeds)
+        pooled = torch.tanh(_linear(hidden[:, 0], w["pooler"], cfg.dtype))
         return hidden, pooled
+
+
+class PhonemeOnlyModel(nn.Module):
+    """Encoder + masked-phoneme head, the counterpart of
+    ``pl_bert_tpu/models/albert.py:562-578``: fp32 logits [B, L, V]. Its
+    state dict has the reference ``.pth``'s keys (``encoder.*``,
+    ``phoneme_predictor.weight/bias``)."""
+
+    def __init__(self, cfg: AlbertConfig, num_phonemes: int = 188) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = AlbertModel(cfg)
+        self.phoneme_predictor = nn.Linear(cfg.hidden_size, num_phonemes)
+
+    def forward(self, input_ids, attention_mask=None, segment_ids=None,
+                position_ids=None, deterministic: bool = True, dropout_seeds=None):
+        hidden, _ = self.encoder(
+            input_ids, attention_mask, segment_ids=segment_ids,
+            position_ids=position_ids, deterministic=deterministic,
+            dropout_seeds=dropout_seeds,
+        )
+        head = self.phoneme_predictor
+        logits = _linear(hidden, {"w": head.weight, "b": head.bias}, self.cfg.dtype)
+        return logits.float()
+
+
+def build_model(params, mixed_precision: str = "bf16") -> PhonemeOnlyModel:
+    """The counterpart of ``pl_bert_tpu/models/albert.py::build_model``
+    (:609-621) for the phoneme-only model; ``params`` has
+    ``ModelParams``' attribute names. Parameters are created with
+    torch's default init; :func:`init_params` gives the JAX package's
+    initial distribution, and ``export/bridge.py`` loads JAX's own."""
+    if getattr(params, "num_token_vocab", 0) > 0:
+        raise NotImplementedError(
+            "num_token_vocab > 0 (the multi-task grapheme head) is not yet ported"
+        )
+    dtype = torch.bfloat16 if mixed_precision in ("bf16", "fp16") else torch.float32
+    return PhonemeOnlyModel(AlbertConfig.from_params(params, dtype=dtype), params.vocab_size)
+
+
+@torch.no_grad()
+def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Initialise in place as the JAX package does (albert.py:285-302,
+    :134-164): matrices and embeddings N(0, initializer_range), biases
+    0, LayerNorm scale 1 and bias 0; from a ``torch.Generator`` seeded
+    with ``seed`` (not JAX's bits)."""
+    gen = torch.Generator().manual_seed(seed)
+    std = model.cfg.initializer_range
+    for name, param in model.named_parameters():
+        if "LayerNorm" in name or "layer_norm" in name:
+            param.fill_(1.0 if name.endswith("weight") else 0.0)
+        elif name.endswith("bias"):
+            param.zero_()
+        else:
+            param.copy_(torch.randn(param.shape, generator=gen) * std)
+    return model
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
 
 
 def move_weights(weights: dict, device) -> dict:
@@ -326,4 +513,3 @@ def move_weights(weights: dict, device) -> dict:
         k: move_weights(v, device) if isinstance(v, dict) else v.to(device)
         for k, v in weights.items()
     }
-

@@ -16,9 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pl_bert_tpu.text.symbols import encode
 from pl_bert_tpu_torch.export.bridge import load_reference_pth
 from pl_bert_tpu_torch.models.albert import AlbertConfig, AlbertModel, move_weights
+from pl_bert_tpu_torch.text.symbols import encode
 
 
 def _device(device) -> torch.device:
@@ -135,11 +135,11 @@ class PhonemeEncoder:
         cls, checkpoint_path: str, config=None, **kwargs
     ) -> "PhonemeEncoder":
         """Load from a reference ``.pth``. ``config``: a training config
-        (``pl_bert_tpu.config.Config``), a path to one (needs pyyaml), or
+        (``pl_bert_tpu_torch.config.Config``), a path to one (needs pyyaml), or
         None for the flagship shape (``AlbertConfig()`` defaults,
         ``max_seq_length`` = its position count)."""
         if isinstance(config, str):
-            from pl_bert_tpu.config import Config
+            from pl_bert_tpu_torch.config import Config
 
             config = Config.load(config)
         if config is None:

@@ -4,9 +4,12 @@ The counterpart of ``pl_bert_tpu/ops/attention.py``. There, the TPU
 gates (``_on_tpu``, ``fused_block_supported``) choose between the
 Pallas kernels and XLA einsum attention. Here, the model's
 ``attention_impl`` chooses between the hand-written attention-block
-kernel (``ops/attention_block.py``; on a CPU tensor its wrapper runs
-the plain version) and the plain PyTorch path on every device, which is
-what the kernel is checked against on the card.
+kernels (``ops/attention_block.py``; on a CPU tensor its wrappers run
+the plain versions) and the plain PyTorch path on every device, which is
+what the kernels are checked against on the card: for serving
+(:func:`self_attention`) and for training (:func:`self_attention_train`,
+where the kernel path is K3/K4's ``autograd.Function`` and the plain
+path is differentiated by autograd).
 """
 
 from __future__ import annotations
@@ -69,4 +72,37 @@ def self_attention(
     return fn(
         hidden, wqkv, bqkv, wo, bo, num_heads, bias=bias,
         segment_ids=segment_ids, out_dtype=out_dtype,
+    )
+
+
+def round_to(w, dtype):
+    """``w`` rounded to ``dtype`` and back, with the gradient passed
+    straight through in ``w``'s dtype: the plain training path reads the
+    weights at the kernels' precision and returns fp32 gradients."""
+    if w.dtype == dtype:
+        return w
+    return w + (w.detach().to(dtype).to(w.dtype) - w.detach())
+
+
+def self_attention_train(
+    impl: str, hidden, w: dict, num_heads: int, bias=None, segment_ids=None,
+    dropout_rate: float = 0.0, dropout_seed=None,
+):
+    """The attention block of a training forward through ``impl``'s path.
+    ``w`` is a training weight set (``AlbertSelfAttention.train_weights``):
+    fp32 ``wqkv32``/``bqkv``/``wo32``/``bo`` and the compute-dtype copies
+    ``wqkv``/``wo``. Both paths drop the same attention probabilities."""
+    from pl_bert_tpu_torch.ops import attention_block as ab
+
+    if impl == "kernel":
+        return ab.attention_block_train(
+            hidden, w["wqkv32"], w["bqkv"], w["wo32"], w["bo"], w["wqkv"], w["wo"],
+            num_heads, bias=bias, segment_ids=segment_ids, dropout_rate=dropout_rate,
+            dropout_seed=dropout_seed,
+        )
+    cdt = hidden.dtype
+    return ab.attention_block_plain(
+        hidden, round_to(w["wqkv32"], cdt), w["bqkv"], round_to(w["wo32"], cdt), w["bo"],
+        num_heads, bias=bias, segment_ids=segment_ids, dropout_rate=dropout_rate,
+        dropout_seed=dropout_seed,
     )

@@ -1,1 +1,2 @@
-"""HTTP serving over the PyTorch encoder (server.py)."""
+"""HTTP serving over the PyTorch encoder (server.py), with its dynamic
+batcher (batcher.py) and replica pool (pool.py)."""

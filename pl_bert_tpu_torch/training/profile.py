@@ -1,0 +1,133 @@
+"""Where a training step's device time goes, from ``torch.profiler``::
+
+    python -m pl_bert_tpu_torch.training.profile [--steps 3]
+
+Runs the port's train step at bench.py's workload (configs/config.yml's
+model: hidden 768, 12 heads, FFN 2048, 12 layers, L 512; bf16, dropout
+0.1, AdamW at 7e-5; random weights from a seed) on the CUDA card: the batch and dropout
+are ``Config()``'s, as in bench.py; two warm-up steps, then ``--steps``
+steps under the profiler. Prints the card
+(``nvidia-smi``), the step time, device time per step by kernel and by
+group (the port's kernels K3-K6, cuBLAS GEMMs, the rest), and the
+device's busy share of the window. Needs a CUDA card; there is no CPU
+fallback.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+# kernel-name substrings → group, first match wins (the port's CUDA
+# kernels carry their template arguments in the demangled name)
+GROUPS = (
+    ("attention_fwd", "K3 attention"),
+    ("gemm_bias<__nv_bfloat16, false>", "K3 projections"),
+    ("attention_bwd", "K4 attention"),
+    ("gemm_bias<__nv_bfloat16, true>", "K4 projections"),
+    ("_fwd_kernel", "K5 LN forward (Triton)"),
+    ("_bwd_kernel", "K6 LN backward (Triton)"),
+    *((key, "cuBLAS GEMMs (FFN, heads, weight gradients)")
+      for key in ("gemm", "nvjet", "cutlass", "xmma")),
+)
+
+
+def group_of(name: str) -> str:
+    for key, group in GROUPS:
+        if key in name:
+            return group
+    return "other (elementwise, reductions, optimizer, copies)"
+
+
+def busy_ms(intervals) -> float:
+    """Length of the union of (start, end) intervals, in ms (µs in)."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total / 1e3
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description="profile the port's train step on the card")
+    parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--top", type=int, default=25, help="kernels listed by device time")
+    parser.add_argument("--json", default=None, help="also write the numbers here")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile: needs a CUDA card")
+    from pl_bert_tpu_torch.config import Config
+    from pl_bert_tpu_torch.data.synthetic import full_length_batches
+    from pl_bert_tpu_torch.models.albert import build_model, init_params
+    from pl_bert_tpu_torch.training import train_step as ts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(card, flush=True)
+    config = Config()
+    mp, tp = config.model_params, config.training_params
+    L, batch, warmup = config.dataset_params.max_seq_length, tp.batch_size, 2
+    model = init_params(build_model(mp, tp.mixed_precision), seed=0).to("cuda")
+    tx = ts.make_optimizer(tp)
+    state = ts.TrainState(model, tx.init(model))
+    step = ts.make_train_step(model, tx, seed=tp.seed)
+    pool = full_length_batches(4, batch, L)
+    for i in range(warmup):
+        float(step(state, pool[i % len(pool)])[1]["loss"])
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(args.steps):
+            float(step(state, pool[(warmup + i) % len(pool)])[1]["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise SystemExit("profile: the trace holds no device activity")
+    intervals = [(e.time_range.start, e.time_range.end) for e in kernels]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    busy = busy_ms(intervals)
+    window = (max(e for _, e in intervals) - min(s for s, _ in intervals)) / 1e3
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        rec = by_name.setdefault(e.name, [0.0, 0])
+        rec[0] += e.time_range.elapsed_us() / 1e3
+        rec[1] += 1
+    by_group: dict[str, float] = {}
+    for name, (ms, _) in by_name.items():
+        by_group[group_of(name)] = by_group.get(group_of(name), 0.0) + ms
+    n = args.steps
+    print(f"B={batch} L={L} {tp.mixed_precision} dropout {mp.dropout}: "
+          f"{wall_ms / n:.1f} ms a step with the profiler on, "
+          f"{device_ms / n:.1f} ms of kernels a step; device busy {busy / window:.1%} of "
+          f"the window from first to last kernel, {busy / wall_ms:.1%} of the host wall time")
+    print("by group, ms a step (share of kernel time):")
+    for group, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"  {ms / n:9.3f}  {ms / device_ms:6.1%}  {group}")
+    print(f"top {args.top} kernels, ms a step, calls a step:")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]
+    for name, (ms, calls) in top:
+        print(f"  {ms / n:9.3f}  {calls / n:6.0f}  {name[:110]}")
+    if args.json:
+        with open(args.json, "w", encoding="utf-8") as f:
+            json.dump({"card": card, "batch": batch, "steps": n,
+                       "wall_ms_per_step": wall_ms / n, "kernel_ms_per_step": device_ms / n,
+                       "busy_share_window": busy / window, "busy_share_wall": busy / wall_ms,
+                       "groups_ms_per_step": {g: ms / n for g, ms in by_group.items()},
+                       "kernels_ms_per_step": {k: v[0] / n for k, v in by_name.items()}},
+                      f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

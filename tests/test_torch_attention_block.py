@@ -113,20 +113,25 @@ def test_unsupported_head_dim_raises(heads):
 
 
 def test_dropout_not_yet_ported():
-    """Serving runs rate 0; attention dropout raises on every device
-    until the training slice adds it to the kernel."""
+    """Attention dropout is ported now: with a seed and a rate the block
+    drops the kernels' Philox mask (the name is kept from when it
+    raised); without a seed the rate is ignored, as in JAX."""
     x, ws, bs, _, _ = _inputs(seed=7)
     t = torch.from_numpy
-    with pytest.raises(NotImplementedError):
-        ab.attention_block(
-            t(x), *(t(a) for n in "qkvo" for a in (ws[n], bs[n])), H,
-            dropout_rate=0.1, dropout_seed=3,
-        )
-    out = ab.attention_block(  # rate ignored without a seed, as in JAX
-        t(x), *(t(a) for n in "qkvo" for a in (ws[n], bs[n])), H,
-        dropout_rate=0.1, out_dtype=torch.float32,
+    args = (t(x), *(t(a) for n in "qkvo" for a in (ws[n], bs[n])), H)
+    dropped = ab.attention_block(*args, dropout_rate=0.1, dropout_seed=3,
+                                 out_dtype=torch.float32)
+    packed = ab.pack_weights(*args[1:9], torch.float32)
+    plain = ab.attention_block_plain(
+        t(x), *packed, H, dropout_rate=0.1, dropout_seed=3,
+        keep=ab.dropout_keep(3, 0.1, B, H, L),
     )
-    assert torch.isfinite(out).all()
+    torch.testing.assert_close(dropped, plain, rtol=0, atol=0)
+    out = ab.attention_block(*args, dropout_rate=0.1, out_dtype=torch.float32)
+    assert torch.isfinite(out).all() and not torch.equal(out, dropped)
+    torch.testing.assert_close(
+        out, ab.attention_block(*args, out_dtype=torch.float32), rtol=0, atol=0
+    )
 
 
 def test_bf16_rounding_points():
