@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path and its training step once on
-one CUDA card.
+"""Drive the PyTorch port's serving path, its training step and its
+Trainer entry point once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -42,7 +42,32 @@ with random weights made from a fixed seed, in order:
    K5 24, K6 24, K1 0); then times K3, K4 and K6 at that shape against
    their plain versions and the library calls, and holds each against
    its plain version there (K4 on K3's saved tensors, dropout 0.1 with
-   the kernels' mask), as phases 9-11 do at B=8.
+   the kernels' mask), as phases 9-11 do at B=8. The B=8 comparison also
+   runs the per-head flash path (``attention_impl: pallas``) against the
+   plain path;
+14. holds the per-head flash attention kernels (K7 forward, K8 backward)
+   against their plain versions at [8, 512, 12, 64] in bf16 and fp32 —
+   padded rows, packed segments, dropout 0 and 0.1 (the kernels' mask,
+   bit for bit the plain Philox), views of one fused projection — at
+   L = 200, and at the training shape [96, 512, 12, 64]; holds the copy
+   anchor (K9) bitwise against its plain version; times K7, K8 and K9
+   against their plain versions and one library call each;
+15. runs the 12-layer encoder on the flash path against the plain path
+   and the block path (in phase 4), and serves 8 HTTP requests from a
+   server started with an ``attention_impl: pallas`` config: 12 K7 and
+   24 K5 launches a forward, no block launch;
+16. the packed run: ``pl_bert_tpu_torch.training.train.train()`` through
+   its normal entry on ``synthetic:4096`` — flagship model,
+   ``attention_impl: pallas``, on-device masking and sequence packing,
+   B=96, bf16, dropout 0.1 — 8 steps with a checkpoint every 4, then
+   the same call again with ``num_steps`` 12, which resumes from
+   ``step_8.pth``; checks the losses, the packing line, the launch
+   counters (12 K7, 12 K8, 24 K5, 24 K6 a training step, 12 K7 and 24 K5
+   a validation forward, no block launch), the three checkpoints, and
+   that ``step_12.pth`` loads strictly into a fresh model;
+17. runs the fused-LN microbench (``tools/bench_fused_ln.py``: the copy
+   anchor, K5, K5+K6 and the plain version over a 24-call chain at
+   [49152, 768]) and prints its table.
 
 Any failure raises and exits non-zero. The line before the last is a
 JSON record of the kernels; the last line is
@@ -120,13 +145,65 @@ KERNELS = {
                             "pl_bert_tpu/ops/attention_block.py:315", "training"),
     "dropout_add_layernorm_bwd": ("triton", "pl_bert_tpu_torch/ops/_ln_triton.py",
                                   "pl_bert_tpu/ops/fused_ln.py:88", "training"),
+    "flash_attention": ("cuda", "pl_bert_tpu_torch/csrc/flash_attention.cu",
+                        "pl_bert_tpu/ops/flash_attention.py:47", "packed_run"),
+    "flash_attention_bwd": ("cuda", "pl_bert_tpu_torch/csrc/flash_attention.cu",
+                            "pl_bert_tpu/ops/flash_attention.py:73", "packed_run"),
+    "add_copy": ("triton", "pl_bert_tpu_torch/ops/_ln_triton.py",
+                 "tools/bench_fused_ln.py:110", "microbench"),
 }
+# the config of the packed run (phase 16), at the flagship width of
+# configs/config.yml; {out} and {steps} are filled in
+RUN_CONFIG = """\
+training_params:
+  output_dir: {out}
+  mixed_precision: bf16
+  batch_size: 96
+  save_interval: 4
+  log_interval: 1
+  num_steps: {steps}
+  learning_rate: 7.0e-5
+  training_dataset: "synthetic:4096"
+dataset_params:
+  max_seq_length: 512
+  ondevice_masking: true
+  sequence_packing: true
+model_params:
+  hidden_size: 768
+  num_attention_heads: 12
+  intermediate_size: 2048
+  max_position_embeddings: 512
+  num_hidden_layers: 12
+  dropout: 0.1
+  attention_impl: pallas
+"""
 MAX_BATCH = 8
 N_CLIENTS, PER_CLIENT = 4, 8
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def all_counters() -> tuple:
+    """Every kernel wrapper's launch counter, in ``KERNELS``' order."""
+    from pl_bert_tpu_torch.ops import attention_block as ab
+    from pl_bert_tpu_torch.ops import flash_attention as fa
+    from pl_bert_tpu_torch.ops import fused_ln
+
+    return (ab.LAUNCHES, fused_ln.LAUNCHES, ab.LAUNCHES_TRAIN, ab.LAUNCHES_BWD,
+            fused_ln.LAUNCHES_BWD, fa.LAUNCHES, fa.LAUNCHES_BWD, fused_ln.LAUNCHES_COPY)
+
+
+def reset_counters() -> tuple:
+    counters = all_counters()
+    for c in counters:
+        c.reset()
+    return counters
+
+
+def read_counters(counters) -> dict:
+    return {c.name: c.count for c in counters}
 
 
 def errors(out, ref) -> dict:
@@ -349,7 +426,7 @@ def phase_encoder(torch, cfg, sd) -> dict:
     texts = [phoneme_text(rng, n) for n in (512, 500, 384, 256, 128, 64, 5)]
     encoders = {}
     for mp in ("bf16", "fp32"):
-        for impl in ("auto", "eager"):
+        for impl in ("auto", "eager", "pallas"):
             params = dataclasses.replace(cfg, attention_impl=impl)
             encoders[mp, impl] = PhonemeEncoder(
                 sd, params, cfg.max_position_embeddings, mixed_precision=mp,
@@ -367,36 +444,50 @@ def phase_encoder(torch, cfg, sd) -> dict:
             raise AssertionError(f"encoder {dname}: non-finite hidden states")
         valid = torch.from_numpy(mask.astype(bool)).to(out.device)
         gate(f"encoder {dname}", errors(out[valid], ref[valid]), ENCODER_TOL[dname])
+        # phase 15: the per-head flash path, against the plain and the block path
+        flash = encoders[mp, "pallas"].forward(ids, mask)
+        torch.cuda.synchronize()
+        if flash.shape != out.shape or not torch.isfinite(flash).all():
+            raise AssertionError(f"flash-path encoder {dname}: bad hidden states")
+        gate(f"encoder {dname}, flash path against plain path",
+             errors(flash[valid], ref[valid]), ENCODER_TOL[dname])
+        gate(f"encoder {dname}, flash path against block path",
+             errors(flash[valid], out[valid]), ENCODER_TOL[dname])
     return encoders
 
 
-def phase_serve(torch, cfg, sd, workdir: str) -> tuple[dict, dict]:
-    """5-7. serve through the port's entry, check answers and counters."""
+def phase_serve(torch, cfg, sd, workdir: str, impl: str = "auto",
+                per_client: int = PER_CLIENT) -> tuple[dict, dict]:
+    """5-7. serve through the port's entry, check answers and counters.
+    ``impl`` "pallas" (phase 15) starts the server with a config that
+    asks for the per-head flash path."""
     import numpy as np
 
     from pl_bert_tpu_torch.models.inference import PhonemeEncoder
-    from pl_bert_tpu_torch.ops import attention_block, fused_ln
     from pl_bert_tpu_torch.serving.server import build_server, serve_in_thread
 
-    log("phase 5: reference .pth + the port's HTTP server in a thread")
+    log(f"phase 5: reference .pth + the port's HTTP server in a thread "
+        f"(attention_impl {impl})")
     ckpt = os.path.join(workdir, "step_0.pth")
     torch.save({"net": {f"encoder.{k}": v for k, v in sd.items()}, "step": 0,
                 "epoch": 0}, ckpt)
-    counters = (attention_block.LAUNCHES, fused_ln.LAUNCHES, attention_block.LAUNCHES_TRAIN,
-                attention_block.LAUNCHES_BWD, fused_ln.LAUNCHES_BWD)
-    for c in counters:  # the serving path's run starts here
-        c.reset()
-    server = build_server([
-        "--checkpoint", ckpt, "--port", "0", "--max_batch", str(MAX_BATCH),
-        "--buckets", ",".join(map(str, BUCKETS)), "--device", DEV,
-    ])
+    argv = ["--checkpoint", ckpt, "--port", "0", "--max_batch", str(MAX_BATCH),
+            "--buckets", ",".join(map(str, BUCKETS)), "--device", DEV]
+    config_path = None
+    if impl != "auto":  # the default config is the flagship model on the block path
+        config_path = os.path.join(workdir, f"serve_{impl}.yml")
+        with open(config_path, "w", encoding="utf-8") as f:
+            f.write(f"model_params:\n  attention_impl: {impl}\n")
+        argv += ["--config_path", config_path]
+    counters = reset_counters()  # the serving path's run starts here
+    server = build_server(argv)
     warm = len(BUCKETS) + 1  # build_server warms every bucket and 512
     serve_in_thread(server)
     port = server.server_address[1]
     log(f"  {server.banner}")
     try:
         rng = np.random.default_rng(SEED + 3)
-        sizes = [5, 500, *rng.integers(5, 501, N_CLIENTS * PER_CLIENT - 2)]
+        sizes = [5, 500, *rng.integers(5, 501, N_CLIENTS * per_client - 2)]
         texts = [phoneme_text(rng, int(n)) for n in sizes]
         answers: dict[int, tuple] = {}
         failures: list[BaseException] = []
@@ -426,7 +517,7 @@ def phase_serve(torch, cfg, sd, workdir: str) -> tuple[dict, dict]:
             raise AssertionError(f"{len(answers)} of {len(texts)} requests answered")
         probe = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
         stats = http_json(probe, "GET", "/stats")
-        launches = {c.name: c.count for c in counters}  # the serving path's run ends here
+        launches = read_counters(counters)  # the serving path's run ends here
         health = http_json(probe, "GET", "/healthz")
         probe.close()
     finally:
@@ -440,7 +531,7 @@ def phase_serve(torch, cfg, sd, workdir: str) -> tuple[dict, dict]:
         f"healthz hidden_size {health['hidden_size']}")
 
     direct = PhonemeEncoder.from_checkpoint(
-        ckpt, batch_size=MAX_BATCH, seq_buckets=BUCKETS, device=DEV
+        ckpt, config_path, batch_size=MAX_BATCH, seq_buckets=BUCKETS, device=DEV
     )
     worst = 0.0
     for i, text in enumerate(texts):
@@ -457,10 +548,10 @@ def phase_serve(torch, cfg, sd, workdir: str) -> tuple[dict, dict]:
 
     log(f"phase 7: launch counters over {forwards} forwards "
         f"({warm} warm-up + {stats['batches']} batches): {launches}")
-    expect = {"attention_block": cfg.num_hidden_layers * forwards,
-              "dropout_add_layernorm": 2 * cfg.num_hidden_layers * forwards,
-              "attention_block_train": 0, "attention_block_bwd": 0,
-              "dropout_add_layernorm_bwd": 0}
+    expect = dict.fromkeys(launches, 0)
+    expect["flash_attention" if impl == "pallas" else "attention_block"] = (
+        cfg.num_hidden_layers * forwards)
+    expect["dropout_add_layernorm"] = 2 * cfg.num_hidden_layers * forwards
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
     return launches, stats
@@ -705,10 +796,11 @@ def phase_train(torch, results: dict) -> tuple[dict, dict, dict]:
     config = Config()  # configs/config.yml's values: bf16, B 96, L 512, AdamW 7e-5
     mp, tp = config.model_params, config.training_params
     L = config.dataset_params.max_seq_length
-    log("phase 13: train step, kernel path against plain path: 3 steps, B=8, bf16, dropout 0")
+    log("phase 13: train step, block path (auto) and flash path (pallas) against the plain "
+        "path: 3 steps, B=8, bf16, dropout 0")
     pool8 = full_length_batches(3, 8, L)
     losses = {}
-    for impl in ("auto", "eager"):
+    for impl in ("auto", "pallas", "eager"):
         model = init_params(build_model(dataclasses.replace(mp, dropout=0.0, attention_impl=impl),
                                         tp.mixed_precision), seed=SEED).to(DEV)
         tx = ts.make_optimizer(tp)
@@ -717,15 +809,17 @@ def phase_train(torch, results: dict) -> tuple[dict, dict, dict]:
         losses[impl] = [{k: float(v) for k, v in step(state, b)[1].items()} for b in pool8]
         del model, state, tx
         torch.cuda.empty_cache()
-    for s, (k, p) in enumerate(zip(losses["auto"], losses["eager"])):
-        rel = {m: abs(k[m] - p[m]) / abs(p[m]) for m in ("loss", "grad_norm")}
-        ok = all(rel[m] <= TRAIN_TOL[m] for m in rel) and all(
-            np.isfinite(k[m]) for m in ("loss", "grad_norm"))
-        log(f"  step {s}: loss {k['loss']:.6f} vs {p['loss']:.6f} (rel {rel['loss']:.2e}), "
-            f"grad_norm {k['grad_norm']:.6f} vs {p['grad_norm']:.6f} "
-            f"(rel {rel['grad_norm']:.2e}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"train step {s}: kernel path off the plain path: {rel}")
+    for impl in ("auto", "pallas"):
+        for s, (k, p) in enumerate(zip(losses[impl], losses["eager"])):
+            rel = {m: abs(k[m] - p[m]) / abs(p[m]) for m in ("loss", "grad_norm")}
+            ok = all(rel[m] <= TRAIN_TOL[m] for m in rel) and all(
+                np.isfinite(k[m]) for m in ("loss", "grad_norm"))
+            log(f"  {impl} step {s}: loss {k['loss']:.6f} vs {p['loss']:.6f} "
+                f"(rel {rel['loss']:.2e}), grad_norm {k['grad_norm']:.6f} vs "
+                f"{p['grad_norm']:.6f} (rel {rel['grad_norm']:.2e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(
+                    f"train step {s}: {impl} path off the plain path: {rel}")
 
     B = tp.batch_size
     log(f"phase 13: bench.py's workload on the kernel path: B={B}, L={L}, "
@@ -739,10 +833,7 @@ def phase_train(torch, results: dict) -> tuple[dict, dict, dict]:
     for i in range(warm):
         _, m = step(state, pool[i % len(pool)])
     float(m["loss"])
-    counters = (ab.LAUNCHES, ab.LAUNCHES_TRAIN, ab.LAUNCHES_BWD, fused_ln.LAUNCHES,
-                fused_ln.LAUNCHES_BWD)
-    for c in counters:  # the training path's run starts here
-        c.reset()
+    counters = reset_counters()  # the training path's run starts here
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     step_losses = []
@@ -750,7 +841,7 @@ def phase_train(torch, results: dict) -> tuple[dict, dict, dict]:
         _, m = step(state, pool[(warm + i) % len(pool)])
         step_losses.append(float(m["loss"]))  # a host read: the step has finished
     wall = time.perf_counter() - t0
-    launches = {c.name: c.count for c in counters}  # the training path's run ends here
+    launches = read_counters(counters)  # the training path's run ends here
     step_ms = wall / timed * 1e3
     tokens = sum(int(pool[(warm + i) % len(pool)]["lengths"].sum()) for i in range(timed))
     log(f"  losses {[round(v, 5) for v in step_losses]}; {step_ms:.1f} ms a step, "
@@ -759,9 +850,10 @@ def phase_train(torch, results: dict) -> tuple[dict, dict, dict]:
     if not all(np.isfinite(step_losses)):
         raise AssertionError(f"non-finite training loss: {step_losses}")
     n = mp.num_hidden_layers
-    expect = {"attention_block": 0, "attention_block_train": n * timed,
-              "attention_block_bwd": n * timed, "dropout_add_layernorm": 2 * n * timed,
-              "dropout_add_layernorm_bwd": 2 * n * timed}
+    expect = dict.fromkeys(launches, 0)
+    expect.update({"attention_block_train": n * timed, "attention_block_bwd": n * timed,
+                   "dropout_add_layernorm": 2 * n * timed,
+                   "dropout_add_layernorm_bwd": 2 * n * timed})
     log(f"  launch counters over {timed} steps: {launches}")
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
@@ -872,6 +964,255 @@ def phase_train(torch, results: dict) -> tuple[dict, dict, dict]:
     return train, launches, {"times": times, "library": library, "bounds": bounds}
 
 
+def flash_cost(B, L, H, D, itemsize, backward=False):
+    """(FLOPs, bytes) of K7 or K8 on dense rows: the forward's q.k and
+    p.v, 4·L²·D a (batch, head), with q, k, v read and o written; the
+    backward's five products, 10·L²·D, with q, k, v, do read and dq, dk,
+    dv written."""
+    tensors, products = (7, 10) if backward else (4, 4)
+    return products * L * L * D * B * H, tensors * B * L * H * D * itemsize
+
+
+def phase_flash_kernels(torch, cfg, results: dict) -> dict:
+    """14. K7, K8 and K9 against their plain versions, then timed."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from pl_bert_tpu_torch.models.albert import attention_bias_from_mask
+    from pl_bert_tpu_torch.ops import attention_block as ab
+    from pl_bert_tpu_torch.ops import flash_attention as fa
+    from pl_bert_tpu_torch.ops import fused_ln
+    from pl_bert_tpu_torch.ops.attention import NEG
+
+    log("phase 14: flash attention forward (K7) and backward (K8) against their plain versions")
+    rng = np.random.default_rng(SEED + 7)
+    H, D, E, dev = cfg.num_attention_heads, cfg.head_dim, cfg.hidden_size, DEV
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+
+    def case(B, L, lengths, segments, dtype):
+        """q, k, v as views of one fused [B, L, 3E] projection (the model's
+        layout), dout, and the bias and segment rows: rows padded to
+        ``lengths``, and with ``segments`` two or three packed samples a row."""
+        qkv = f32(rng.standard_normal((B, L, 3 * E)) * 0.7).to(dtype)
+        q, k, v = (t.reshape(B, L, H, D) for t in qkv.split(E, dim=-1))
+        dout = f32(rng.standard_normal((B, L, H, D))).to(dtype)
+        valid = np.arange(L)[None, :] < np.asarray(lengths)[:, None]
+        seg = None
+        if segments:
+            cuts = np.asarray(lengths)[:, None] * np.array([[0.3, 0.55]])
+            seg_np = (np.arange(L)[None, :, None] >= cuts[:, None, :]).sum(-1)
+            seg = torch.from_numpy(np.where(valid, seg_np, -1).astype(np.int32)).to(dev)
+        bias_row, seg_row = ab.rows(attention_bias_from_mask(f32(valid)), seg, B, L)
+        return q, k, v, dout, bias_row, seg_row
+
+    def check(tag, B, L, lengths, segments, dtype, rate):
+        dname = str(dtype).removeprefix("torch.")
+        q, k, v, dout, bias_row, seg_row = case(B, L, lengths, segments, dtype)
+        seed = 977 if rate else None
+        keep = ab.dropout_mask(seed, rate, B, H, L, dev) if rate else None
+        out = fa.flash_attention_fwd(q, k, v, bias_row, seg_row, rate, seed)
+        grads = fa.flash_attention_bwd(dout, q, k, v, bias_row, seg_row, rate, seed)
+        ref = fa.flash_attention_plain(q, k, v, bias_row, seg_row, rate, seed, keep=keep)
+        refs = fa.flash_attention_bwd_plain(dout, q, k, v, bias_row, seg_row, rate, seed,
+                                            keep=keep)
+        torch.cuda.synchronize()
+        if out.shape != (B, L, H, D) or out.dtype != dtype:
+            raise AssertionError(f"K7 {tag}: {out.shape} {out.dtype}")
+        label = f"{tag} {dname} dropout {rate}"
+        hold(results, "flash_attention", f"K7 out {label}", out, ref, TOL[dname])
+        for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+            hold(results, "flash_attention_bwd", f"K8 {name} {label}", a, r, TOL[dname])
+
+    padded = [512, 480, 384, 256, 128, 64, 5, 0]
+    mask = ab.dropout_mask(977, 0.1, 8, H, 512, dev)
+    if not torch.equal(mask.bool(), ab.dropout_keep(977, 0.1, 8, H, 512, dev)):
+        raise AssertionError("the kernels' dropout mask is not the plain Philox")
+    log("  the kernels' dropout mask equals the plain Philox bit for bit")
+    del mask
+    for dtype in (torch.bfloat16, torch.float32):
+        for rate in (0.0, 0.1):
+            check("[8, 512, 12, 64] padded", 8, 512, padded, False, dtype, rate)
+            check("[8, 512, 12, 64] packed", 8, 512, padded, True, dtype, rate)
+        check("[8, 200, 12, 64] packed", 8, 200, [200, 199, 150, 101, 100, 64, 3, 0], True,
+              dtype, 0.1)
+    Bt = 96
+    check(f"[{Bt}, 512, 12, 64] packed", Bt, 512, rng.integers(300, 513, Bt), True,
+          torch.bfloat16, 0.1)
+    torch.cuda.empty_cache()
+
+    N = Bt * 512
+    for dtype in (torch.bfloat16, torch.float32):
+        x, res = (f32(rng.standard_normal((N, E))).to(dtype) for _ in range(2))
+        got, want = fused_ln.add_copy(x, res), fused_ln.add_copy_plain(x, res)
+        torch.cuda.synchronize()
+        results["add_copy"].append(float((got.float() - want.float()).abs().max()))
+        log(f"  K9 add_copy [{N}, {E}] {dtype}: bitwise {bool(torch.equal(got, want))}")
+        if got.dtype != dtype or not torch.equal(got, want):
+            raise AssertionError(f"K9 add_copy {dtype} differs from its plain version")
+
+    log("phase 14: K7 and K8 timed, bf16, dropout 0.1, full-length rows, no segments: device "
+        "time from a replayed CUDA graph at B=8, CUDA events over back-to-back calls at B=96")
+    times, library, bounds = {}, {}, {}
+    rate, seed, dt = 0.1, 977, torch.bfloat16
+    for B, timer, iters in ((8, graph_ms, 10), (Bt, time_ms, 3)):
+        q, k, v, dout, bias_row, _ = case(B, 512, [512] * B, False, dt)
+        keep = ab.dropout_mask(seed, rate, B, H, 512, dev)
+        fwd = a_b(torch,
+                  lambda: fa.flash_attention_plain(q, k, v, bias_row, None, rate, seed, keep=keep),
+                  lambda: fa.flash_attention_fwd(q, k, v, bias_row, None, rate, seed),
+                  iters=iters, timer=timer)
+        bwd = a_b(torch,
+                  lambda: fa.flash_attention_bwd_plain(dout, q, k, v, bias_row, None, rate, seed,
+                                                       keep=keep),
+                  lambda: fa.flash_attention_bwd(dout, q, k, v, bias_row, None, rate, seed),
+                  iters=iters, timer=timer)
+        del keep
+        # library yardstick, timed only: SDPA with the mask, forward, then
+        # its backward; it rounds at other points than the kernels
+        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        attn_bias = bias_row.clamp(min=NEG).to(dt)[:, None, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qs, ks, vs, attn_mask=attn_bias, dropout_p=rate)
+        lib_fwd = time_ms(torch, sdpa, max(iters, 5))
+        sdpa_out = sdpa()
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            sdpa_out, [qs, ks, vs], dout.transpose(1, 2), retain_graph=True), max(iters, 5))
+        del sdpa_out
+        shape = f"[{B}, 512, 12, 64]"
+        for name, (kms, pms), lib, back in (("flash_attention", fwd, lib_fwd, False),
+                                            ("flash_attention_bwd", bwd, lib_bwd, True)):
+            bound = bound_ms(*flash_cost(B, 512, H, D, 2, back))
+            log(f"  {name} {shape}: kernel {kms:.4f} ms, plain {pms:.4f} ms, library "
+                f"{lib:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+            # the kernels line carries the packed run's shape, B=96
+            times[name], library[name], bounds[name] = (kms, pms), lib, bound
+        torch.cuda.empty_cache()
+
+    x, res = (f32(rng.standard_normal((N, E))).to(dt) for _ in range(2))
+    times["add_copy"] = a_b(torch, lambda: fused_ln.add_copy_plain(x, res),
+                            lambda: fused_ln.add_copy(x, res), iters=20)
+    library["add_copy"] = time_ms(torch, lambda: torch.add(x, res), 20)
+    # one fp32 add an element; x and the residual read, the output written
+    bounds["add_copy"] = bound_ms(1.0 * N * E, 3 * N * E * 2, PEAK_FP32_FLOPS)
+    kms, pms = times["add_copy"]
+    log(f"  add_copy [{N}, {E}]: kernel {kms:.4f} ms, plain {pms:.4f} ms, library "
+        f"{library['add_copy']:.4f} ms, bound {bounds['add_copy'][0]:.4f} ms "
+        f"({bounds['add_copy'][1]})")
+    return {"times": times, "library": library, "bounds": bounds}
+
+
+def phase_packed_run(torch, workdir: str) -> tuple[dict, dict]:
+    """16. the Trainer through its normal entry on a packed,
+    on-device-masked run on the flash path: 8 steps, then a resume to 12."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from pl_bert_tpu_torch.config import Config
+    from pl_bert_tpu_torch.models.albert import build_model
+    from pl_bert_tpu_torch.training.train import train
+
+    out_dir = os.path.join(workdir, "runs")
+    config_path = os.path.join(workdir, "packed_run.yml")
+    run_dir = os.path.join(out_dir, "smoke")
+
+    class Tee(io.StringIO):
+        def write(self, text):
+            sys.__stdout__.write(text)
+            sys.__stdout__.flush()
+            return super().write(text)
+
+    def launch(steps: int, paths) -> tuple[str, dict, float]:
+        for path in paths:
+            with open(path, "w", encoding="utf-8") as f:
+                f.write(RUN_CONFIG.format(out=out_dir, steps=steps))
+        counters = reset_counters()  # the packed run starts here
+        printed = Tee()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            final = train({"config_path": config_path, "run_name": "smoke", "device": DEV})
+        wall = time.perf_counter() - t0
+        launches = read_counters(counters)  # the packed run ends here
+        if final != steps:
+            raise AssertionError(f"the run stopped at step {final}, not {steps}")
+        return printed.getvalue(), launches, wall
+
+    log("phase 16: the packed run through training.train.train(): flagship model, "
+        "attention_impl pallas, on-device masking, sequence packing, B=96, bf16, dropout 0.1, "
+        "8 steps")
+    printed, first, wall1 = launch(8, [config_path])
+    if "sequence packing:" not in printed or "token occupancy" not in printed:
+        raise AssertionError("the run did not print its packing line")
+    log("phase 16: the same call again with num_steps 12 (the run directory's config copy "
+        "is what a resumed run reads, so it is raised there too): resumes from step_8.pth")
+    printed2, second, wall2 = launch(12, [config_path, os.path.join(run_dir, "packed_run.yml")])
+    if "step_8.pth loaded" not in printed2 or "Resuming" not in printed2:
+        raise AssertionError("the second call did not resume from step_8.pth")
+
+    with open(os.path.join(run_dir, "metrics.jsonl"), encoding="utf-8") as f:
+        records = [json.loads(line) for line in f]
+    steps = [r for r in records if "loss" in r]
+    if [r["step"] for r in steps] != list(range(1, 13)):
+        raise AssertionError(f"metrics.jsonl steps: {[r['step'] for r in steps]}")
+    losses = [r["loss"] for r in steps]
+    vals = [r for r in records if "val_phoneme_loss" in r]
+    if not all(np.isfinite(losses)) or not all(np.isfinite(r["val_phoneme_loss"]) for r in vals):
+        raise AssertionError(f"non-finite loss in the packed run: {losses}")
+    for n in (4, 8, 12):
+        if not os.path.isfile(os.path.join(run_dir, f"step_{n}.pth")):
+            raise AssertionError(f"step_{n}.pth is missing")
+    config = Config.load(config_path)
+    ckpt = torch.load(os.path.join(run_dir, "step_12.pth"), map_location="cpu",
+                      weights_only=True)
+    fresh = build_model(config.model_params, config.training_params.mixed_precision)
+    fresh.load_state_dict(ckpt["net"], strict=True)
+    if ckpt["step"] != 12 or len(ckpt["optimizer"]["state"]) != len(ckpt["net"]):
+        raise AssertionError("step_12.pth: wrong step or optimizer state")
+
+    n = config.model_params.num_hidden_layers
+    total = {k: first[k] + second[k] for k in first}
+    # every training step runs K7 and K8 once and K5 and K6 twice a layer;
+    # every validation forward K7 once and K5 twice a layer
+    evals, rem = divmod(total["flash_attention"] - 12 * n, n)
+    expect = dict.fromkeys(total, 0)
+    expect.update({"flash_attention": n * (12 + evals), "flash_attention_bwd": n * 12,
+                   "dropout_add_layernorm": 2 * n * (12 + evals),
+                   "dropout_add_layernorm_bwd": 2 * n * 12})
+    log(f"  launch counters over 12 training steps and {evals} validation forwards: {total}")
+    if rem or evals < 0 or total != expect:
+        raise AssertionError(f"launch counts {total} != {expect}")
+    # per-step rates from the run's own log (log_interval 1: each record
+    # ends in a host read of the loss, so the step has finished); the
+    # median leaves out the steps that follow a checkpoint and a validation
+    occupancy = float(printed.split("rows (")[1].split("%")[0]) / 100
+    sps = float(np.median([r["steps_per_sec"] for r in steps if "steps_per_sec" in r]))
+    tokens = sps * config.training_params.batch_size * config.dataset_params.max_seq_length
+    log(f"  losses {[round(v, 4) for v in losses]}; validation "
+        f"{[round(r['val_phoneme_loss'], 4) for r in vals]}")
+    log(f"  packed run: {1e3 / sps:.1f} ms a step (median), {tokens:.0f} token positions/s, "
+        f"{tokens * occupancy:.0f} phoneme tokens/s at {occupancy:.0%} occupancy; the two "
+        f"calls took {wall1:.1f} s and {wall2:.1f} s with set-up, validation and checkpoints")
+    run = {"step_ms": 1e3 / sps, "tokens_per_s": tokens * occupancy, "occupancy": occupancy,
+           "losses": losses}
+    return run, total
+
+
+def phase_microbench(torch) -> dict:
+    """17. the fused-LN microbench through its own entry."""
+    from pl_bert_tpu_torch.tools import bench_fused_ln
+
+    log("phase 17: the fused-LN microbench (copy anchor K9, K5, K5+K6, plain)")
+    counters = reset_counters()  # the microbench's run starts here
+    bench_fused_ln.main(["--steps", "5"])
+    launches = read_counters(counters)  # the microbench's run ends here
+    # the anchor's case: the warm-up chains and five timed ones
+    expect = bench_fused_ln.CALLS * (bench_fused_ln.WARMUP + 5)
+    if launches["add_copy"] != expect:
+        raise AssertionError(f"add_copy launched {launches['add_copy']} times, not {expect}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -901,8 +1242,8 @@ def main() -> int:
 
     log("phase 2: build")
     t0 = time.perf_counter()
-    for name in build.all_sources():
-        log(f"  nvcc {name}: {build.build(name)}")
+    for name, path in build.build_all().items():  # one nvcc a source, all at once
+        log(f"  nvcc {name}: {path}")
     build.import_triton()
     log(f"  built in {time.perf_counter() - t0:.1f} s (Triton compiles at first launch)")
 
@@ -913,30 +1254,40 @@ def main() -> int:
     encoders = phase_encoder(torch, cfg, sd)
     with tempfile.TemporaryDirectory() as workdir:
         serve_launches, _ = phase_serve(torch, cfg, sd, workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        log("phase 15: 8 requests from a server started with attention_impl pallas")
+        phase_serve(torch, cfg, sd, workdir, impl="pallas", per_client=2)
     serving = phase_timing(torch, cfg, encoders)
     del encoders
     torch.cuda.empty_cache()
     phase_train_kernels(torch, cfg, results)
+    flash = phase_flash_kernels(torch, cfg, results)
     train, train_launches, training = phase_train(torch, results)
+    with tempfile.TemporaryDirectory() as workdir:
+        run, run_launches = phase_packed_run(torch, workdir)
+    bench_launches = phase_microbench(torch)
 
+    paths = {"serving": (serve_launches, serving), "training": (train_launches, training),
+             "packed_run": (run_launches, flash), "microbench": (bench_launches, flash)}
     kernels = []
     for name, (route, source, replaces, path) in KERNELS.items():
-        measured = serving if path == "serving" else training
+        launches, measured = paths[path]
         ms, plain_ms = measured["times"][name]
         bound, bound_by = measured["bounds"][name]
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            # the count from the run of the path the kernel serves; both
-            # paths' counts beside (K5 runs in both)
-            "launches": (serve_launches if path == "serving" else train_launches)[name],
+            # the count from the run of the path the kernel serves; every
+            # path's count beside (K5 runs in all but the plain ones)
+            "launches": launches[name],
             "max_abs_err": max(results[name]), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": measured["library"].get(name),
-            "launches_by_path": {"serving": serve_launches[name],
-                                 "training": train_launches[name]},
+            "launches_by_path": {p: counts[name] for p, (counts, _) in paths.items()},
         })
-    log(f"train step: {train['step_ms']:.1f} ms, {train['tokens_per_s']:.0f} phoneme tokens/s "
-        f"(B=96, L=512, bf16, dropout 0.1)")
+    log(f"train step, block path: {train['step_ms']:.1f} ms, {train['tokens_per_s']:.0f} "
+        f"phoneme tokens/s (B=96, L=512, bf16, dropout 0.1)")
+    log(f"packed run, flash path: {run['step_ms']:.1f} ms a step, {run['tokens_per_s']:.0f} "
+        f"phoneme tokens/s at {run['occupancy']:.0%} occupancy (B=96, L=512, bf16, dropout 0.1)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

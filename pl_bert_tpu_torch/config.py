@@ -272,7 +272,10 @@ class ModelParams:
     initializer_range: float = 0.02
     hidden_act: str = "gelu_new"
     # TPU build extensions
-    attention_impl: str = "auto"  # auto | xla | pallas
+    # the port's three paths (ops/attention.py::IMPL_PATHS): auto (also
+    # pallas_block, kernel) the attention-block kernels; pallas the
+    # per-head flash kernels; xla (also eager) the plain PyTorch path
+    attention_impl: str = "auto"  # auto | pallas | xla
     num_token_vocab: int = 0  # >0 enables the grapheme (token) head
     # Megatron-style sequence parallelism (with model_axis > 1): the
     # attention out-projection reduce-scatters over the sequence instead

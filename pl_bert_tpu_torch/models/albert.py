@@ -26,10 +26,16 @@ gradients for the kernels to read. The dense layers cast their fp32
 weights per application, as flax does, so their gradients are rounded
 per application and summed in fp32, as in JAX.
 
-The attention block and both dropout+add+LayerNorm sites run the
-hand-written kernels (``ops/attention_block.py``, ``ops/fused_ln.py``)
-unless ``attention_impl`` is ``eager`` (or the JAX value ``xla``), which
-runs their plain versions on any device, under autograd when training.
+``attention_impl`` picks the attention path (``ops/attention.py``):
+``auto`` the attention-block kernels (``ops/attention_block.py``),
+``pallas`` the per-head flash kernels (``ops/flash_attention.py``)
+between cuBLAS projections, as the JAX model's ``pallas`` branch
+(pl_bert_tpu/models/albert.py:399-459) leaves its projections to XLA.
+Both run the fused dropout+add+LayerNorm kernels (``ops/fused_ln.py``)
+at the two LayerNorm sites. ``eager`` (or the JAX value ``xla``) runs
+the plain versions of all of them on any device, under autograd when
+training. All three read the same parameters, so one state dict drives
+them all.
 
 Dropout draws one seed per site per layer application per forward —
 the embedding, then (attention, first LayerNorm, second LayerNorm) for
@@ -46,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pl_bert_tpu_torch.ops.attention import (
+    fused_attention,
     resolve_impl,
     self_attention,
     self_attention_train,
@@ -72,7 +79,7 @@ class AlbertConfig:
     layer_norm_eps: float = 1e-12
     initializer_range: float = 0.02
     hidden_act: str = "gelu_new"
-    attention_impl: str = "auto"  # auto/kernel | eager (JAX names accepted)
+    attention_impl: str = "auto"  # auto (block) | pallas (flash) | eager/xla
     dtype: torch.dtype = torch.float32  # compute dtype (params stay fp32)
 
     @classmethod
@@ -201,7 +208,8 @@ class AlbertEmbeddings(nn.Module):
 
 class AlbertSelfAttention(nn.Module):
     """The attention block (QKV + attention + output projection), then
-    dropout + residual add + LayerNorm."""
+    dropout + residual add + LayerNorm. On the ``flash`` path the
+    projections are cuBLAS GEMMs around the per-head kernel."""
 
     def __init__(self, cfg: AlbertConfig) -> None:
         super().__init__()
@@ -241,8 +249,35 @@ class AlbertSelfAttention(nn.Module):
             "ln": {"g": self.LayerNorm.weight, "b": self.LayerNorm.bias},
         }
 
+    def _flash(self, hidden, attention_bias, segment_ids, w: dict, seed=None):
+        """The ``pallas`` branch of the JAX model: q, k, v from one GEMM
+        on the packed [E, 3P] weight (three dense layers' worth; the
+        kernel reads the three sections in place), K7 (K8 under
+        autograd), then the ``dense`` projection. A training set's fp32
+        weights are cast here, per application, as :func:`_linear` does."""
+        cfg = self.cfg
+        B, L, E = hidden.shape
+        dtype, nh = cfg.dtype, cfg.num_attention_heads
+        wqkv, wo = (w["wqkv32"], w["wo32"]) if "wqkv32" in w else (w["wqkv"], w["wo"])
+        qkv = torch.addmm(w["bqkv"].to(dtype), hidden.reshape(B * L, E), wqkv.to(dtype))
+        q, k, v = (t.reshape(B, L, nh, cfg.head_dim) for t in qkv.split(E, dim=1))
+        ctx = fused_attention(
+            q, k, v, attention_bias, segment_ids, dtype=dtype,
+            dropout_rate=cfg.dropout if seed is not None else 0.0, dropout_seed=seed,
+        )
+        out = torch.addmm(w["bo"].to(dtype), ctx.reshape(B * L, E), wo.to(dtype))
+        return out.reshape(B, L, E)
+
     def forward(self, hidden, attention_bias, segment_ids, w: dict, seeds=None):
         cfg = self.cfg
+        if self.impl == "flash":
+            train = seeds is not None
+            out = self._flash(hidden, attention_bias, segment_ids, w,
+                              seeds[0] if train else None)
+            return _add_layernorm(
+                self.impl, out, hidden, w["ln"], cfg.layer_norm_eps, train,
+                seeds[1] if train else None, cfg.dropout if train else 0.0,
+            )
         if seeds is None:
             out = self_attention(
                 self.impl, hidden, w["wqkv"], w["bqkv"], w["wo"], w["bo"],
@@ -264,7 +299,7 @@ def _add_layernorm(impl: str, x, residual, ln: dict, eps: float, train: bool = F
                    seed=None, rate: float = 0.0):
     """Dropout + residual add + LayerNorm; ``train`` runs the kernel path
     through K5/K6's autograd Function."""
-    if impl == "kernel":
+    if impl != "eager":
         fn = dropout_add_layernorm_train if train else dropout_add_layernorm
     else:
         fn = dropout_add_layernorm_plain

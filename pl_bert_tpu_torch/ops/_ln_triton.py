@@ -1,5 +1,7 @@
 """Triton sources of the fused dropout + residual add + LayerNorm kernels:
-the forward (K5), its backward (K6) and a mask-only kernel for checks.
+the forward (K5), its backward (K6), a mask-only kernel for checks, and
+the copy anchor (K9): K5's loads, fp32 add and store over K5's row blocks
+with nothing else, the floor of K5's traffic under the same launch shape.
 
 Imported only by ``fused_ln`` when it launches on a CUDA tensor (after
 ``runtime.build.import_triton``), because importing this module needs
@@ -81,6 +83,17 @@ def _bwd_kernel(
 
 
 @triton.jit
+def _copy_kernel(X, R, O, n_rows, H, ROWS: tl.constexpr, BLOCK_H: tl.constexpr):
+    rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)
+    cols = tl.arange(0, BLOCK_H)
+    ok = (rows < n_rows)[:, None] & (cols < H)[None, :]
+    offs = rows[:, None].to(tl.int64) * H + cols[None, :]
+    y = (tl.load(X + offs, mask=ok, other=0.0).to(tl.float32)
+         + tl.load(R + offs, mask=ok, other=0.0).to(tl.float32))
+    tl.store(O + offs, y.to(O.dtype.element_ty), mask=ok)
+
+
+@triton.jit
 def _mask_kernel(K, n, seed, rate, BLOCK: tl.constexpr):
     offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
     ok = offs < n
@@ -125,6 +138,15 @@ def launch_bwd(x, res, gamma, dy, dx, dres, seed: int, rate: float, eps: float,
         HAS_DROPOUT=rate > 0.0, ROWS=rows, BLOCK_H=block_h, num_warps=warps,
     )
     return dg, db
+
+
+def launch_copy(x, res, out):
+    """K9 over [N, H]: K5's grid and block shape."""
+    n_rows, H = x.shape
+    rows, block_h, warps = _shape(H)
+    _copy_kernel[(triton.cdiv(n_rows, rows),)](
+        x, res, out, n_rows, H, ROWS=rows, BLOCK_H=block_h, num_warps=warps,
+    )
 
 
 def launch_mask(keep, seed: int, rate: float):

@@ -1,15 +1,22 @@
 """Attention dispatch and the plain eager attention.
 
 The counterpart of ``pl_bert_tpu/ops/attention.py``. There, the TPU
-gates (``_on_tpu``, ``fused_block_supported``) choose between the
-Pallas kernels and XLA einsum attention. Here, the model's
-``attention_impl`` chooses between the hand-written attention-block
-kernels (``ops/attention_block.py``; on a CPU tensor its wrappers run
-the plain versions) and the plain PyTorch path on every device, which is
-what the kernels are checked against on the card: for serving
-(:func:`self_attention`) and for training (:func:`self_attention_train`,
-where the kernel path is K3/K4's ``autograd.Function`` and the plain
-path is differentiated by autograd).
+gates (``_on_tpu``, ``pallas_supported``, ``fused_block_supported``)
+choose between the Pallas kernels and XLA einsum attention. Here, the
+model's ``attention_impl`` names one of three paths on every device
+(:func:`resolve_impl`):
+
+- ``block`` — the hand-written attention-block kernels
+  (``ops/attention_block.py``: QKV projection, attention and output
+  projection in one call), for serving (:func:`self_attention`) and for
+  training (:func:`self_attention_train`, K3/K4's ``autograd.Function``);
+- ``flash`` — the per-head flash-attention kernels
+  (``ops/flash_attention.py``) between dense projections
+  (:func:`fused_attention`), as ``attention_impl: pallas`` runs on the TPU;
+- ``eager`` — the plain PyTorch path, differentiated by autograd, which
+  is what the kernels are checked against on the card.
+
+On a CPU tensor each kernel wrapper runs its plain version.
 """
 
 from __future__ import annotations
@@ -22,22 +29,26 @@ import torch
 # infinity" for masked scores, so a fully masked row stays finite
 NEG = -0.7 * torch.finfo(torch.float32).max
 
-EAGER_IMPLS = ("eager", "xla")
-KERNEL_IMPLS = ("auto", "kernel", "pallas_block", "pallas")
+# a config's attention_impl → the path it runs; the JAX config's values
+# carry over (pl_bert_tpu/models/albert.py:186-209): ``auto`` prefers the
+# block as it does on the TPU, ``pallas`` is the per-head kernel, ``xla``
+# the plain path
+IMPL_PATHS = {
+    "auto": "block", "kernel": "block", "pallas_block": "block",
+    "pallas": "flash",
+    "eager": "eager", "xla": "eager",
+}
 
 
 def resolve_impl(attention_impl: str) -> str:
-    """``"kernel"`` or ``"eager"`` for a config's ``attention_impl``.
-    JAX config values carry over: ``xla`` is the plain path, and
-    ``auto``/``pallas_block``/``pallas`` are the kernel path."""
-    if attention_impl in EAGER_IMPLS:
-        return "eager"
-    if attention_impl in KERNEL_IMPLS:
-        return "kernel"
-    raise ValueError(
-        f"unsupported attention_impl {attention_impl!r}: one of "
-        f"{EAGER_IMPLS + KERNEL_IMPLS}"
-    )
+    """``"block"``, ``"flash"`` or ``"eager"`` for a config's
+    ``attention_impl`` (see ``IMPL_PATHS``)."""
+    try:
+        return IMPL_PATHS[attention_impl]
+    except KeyError:
+        raise ValueError(
+            f"unsupported attention_impl {attention_impl!r}: one of {tuple(IMPL_PATHS)}"
+        ) from None
 
 
 def eager_attention(q, k, v, bias=None, segment_ids=None, dtype=torch.bfloat16):
@@ -60,6 +71,18 @@ def eager_attention(q, k, v, bias=None, segment_ids=None, dtype=torch.bfloat16):
     return out.to(out_dtype)
 
 
+def fused_attention(q, k, v, bias=None, segment_ids=None, dtype=None,
+                    dropout_rate: float = 0.0, dropout_seed=None):
+    """The per-head kernel path on [B, L, H, D] q/k/v, the counterpart of
+    ``fused_attention`` (pl_bert_tpu/ops/attention.py:77-88) without its
+    TPU gates: always the flash kernels (K7, and K8 under autograd), on
+    any sequence length."""
+    from pl_bert_tpu_torch.ops.flash_attention import flash_attention
+
+    return flash_attention(q, k, v, bias, segment_ids, out_dtype=dtype,
+                           dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+
+
 def self_attention(
     impl: str, hidden, wqkv, bqkv, wo, bo, num_heads: int,
     bias=None, segment_ids=None, out_dtype=None,
@@ -68,7 +91,7 @@ def self_attention(
     ``attention_block.pack_weights``) through ``impl``'s path."""
     from pl_bert_tpu_torch.ops import attention_block as ab
 
-    fn = ab.attention_block_packed if impl == "kernel" else ab.attention_block_plain
+    fn = ab.attention_block_packed if impl == "block" else ab.attention_block_plain
     return fn(
         hidden, wqkv, bqkv, wo, bo, num_heads, bias=bias,
         segment_ids=segment_ids, out_dtype=out_dtype,
@@ -94,7 +117,7 @@ def self_attention_train(
     ``wqkv``/``wo``. Both paths drop the same attention probabilities."""
     from pl_bert_tpu_torch.ops import attention_block as ab
 
-    if impl == "kernel":
+    if impl == "block":
         return ab.attention_block_train(
             hidden, w["wqkv32"], w["bqkv"], w["wo32"], w["bo"], w["wqkv"], w["wo"],
             num_heads, bias=bias, segment_ids=segment_ids, dropout_rate=dropout_rate,

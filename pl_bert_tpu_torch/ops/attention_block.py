@@ -12,8 +12,10 @@ Replaces the Pallas kernels of ``pl_bert_tpu/ops/attention_block.py``:
   (:586-638): :func:`train_backward`. :class:`AttentionBlockFunction`
   joins the two under autograd.
 
-The kernels live in ``csrc/attention_block.cu``; its header says what
-bounds them on the card. All projections, forward and backward
+The kernels live in ``csrc/attention_block.cu`` (the GEMM) and
+``csrc/attention_tiles.cuh`` (the attention kernels, shared with
+``ops/flash_attention.py``); the former's header says what bounds them on
+the card. All projections, forward and backward
 (``do = dout·Woᵀ``, ``dx = [dq|dk|dv]·[Wq|Wk|Wv]ᵀ``), run in the
 hand-written GEMM there, not in cuBLAS. The weight and bias gradients
 are plain matmuls and sums outside the kernels, as the TPU left them to
@@ -400,9 +402,10 @@ def attention_block_train(hidden, wqkv32, bqkv32, wo32, bo32, wqkv, wo, num_head
 
 
 @functools.cache
-def _entry(name: str, n_ptrs: int, n_ints: int, tail=()):
-    """A C entry point of the library, built and typed at first use."""
-    fn = getattr(build.load("attention_block"), name)
+def _entry(name: str, n_ptrs: int, n_ints: int, tail=(), lib: str = "attention_block"):
+    """A C entry point of ``csrc/<lib>.cu``'s library, built and typed at
+    first use: ``n_ptrs`` pointers, ``n_ints`` ints, ``tail``, the stream."""
+    fn = getattr(build.load(lib), name)
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + list(tail)
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int

@@ -26,6 +26,13 @@ a row reduction plus an elementwise pass. Differences from the TPU:
   partial sum of dγ and dβ, reduced outside (the TPU wrote one per
   block, :104-105, :168-169).
 
+:func:`add_copy` (K9) replaces the copy anchor of
+``tools/bench_fused_ln.py`` (``_copy_kernel`` :110-113 via ``copy_op``
+:115-127): ``(fp32(x) + fp32(res))`` cast back, over K5's row blocks —
+K5's traffic with none of its arithmetic, so the bytes bound it
+(3 × rows × H × itemsize). ``pl_bert_tpu_torch/tools/bench_fused_ln.py``
+times K5 against it.
+
 The plain versions are the same functions in plain PyTorch; a wrapper
 takes them for CPU tensors only. On the CPU the dropout mask comes from a
 ``torch.Generator`` seeded with ``seed`` (the forward and the backward
@@ -43,6 +50,7 @@ from pl_bert_tpu_torch.runtime import build
 
 LAUNCHES = build.LaunchCounter("dropout_add_layernorm")  # K5
 LAUNCHES_BWD = build.LaunchCounter("dropout_add_layernorm_bwd")  # K6
+LAUNCHES_COPY = build.LaunchCounter("add_copy")  # K9
 
 
 def _seed_int(seed) -> int:
@@ -191,6 +199,31 @@ def dropout_add_layernorm_bwd_plain(
     dgamma = (g * xhat).reshape(-1, H).sum(0)
     dbeta = g.reshape(-1, H).sum(0)
     return dx.to(x.dtype), dres.to(residual.dtype), dgamma, dbeta
+
+
+def add_copy(x, residual):
+    """K9, the copy anchor: ``(fp32(x) + fp32(residual))`` cast to
+    ``x.dtype``, [..., H]. A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel or raises."""
+    if residual.shape != x.shape or residual.dtype != x.dtype:
+        raise ValueError(f"residual {tuple(residual.shape)} {residual.dtype} != x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if x.device.type == "cpu":
+        return add_copy_plain(x, residual)
+    _check_cuda(x, ("residual", residual))
+    H = x.shape[-1]
+    x2 = x.reshape(-1, H).contiguous()
+    r2 = residual.reshape(-1, H).contiguous()
+    out = torch.empty_like(x2)
+    with torch.cuda.device(x.device):
+        _triton_ln().launch_copy(x2, r2, out)
+    LAUNCHES_COPY.add()
+    return out.reshape(x.shape)
+
+
+def add_copy_plain(x, residual):
+    """K9's function in plain PyTorch."""
+    return (x.float() + residual.float()).to(x.dtype)
 
 
 def dropout_mask(shape, seed: int, rate: float, device):

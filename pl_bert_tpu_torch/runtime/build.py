@@ -154,6 +154,17 @@ def all_sources() -> list[str]:
     return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
 
+def build_all(extra_flags: tuple[str, ...] = (), verbose: bool = False) -> dict[str, Path]:
+    """Build every ``csrc/*.cu``, one ``nvcc`` a source, all started
+    together; {name: library path}. The first failure raises."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = all_sources()
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        paths = list(pool.map(lambda n: build(n, extra_flags, verbose), names))
+    return dict(zip(names, paths))
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="build the port's CUDA kernels")
     parser.add_argument(
@@ -162,8 +173,8 @@ def main(argv=None) -> None:
     )
     args = parser.parse_args(argv)
     extra = ("-Xptxas", "-v") if args.ptxas_verbose else ()
-    for name in all_sources():
-        print(f"built {build(name, extra, verbose=args.ptxas_verbose)}", flush=True)
+    for path in build_all(extra, verbose=args.ptxas_verbose).values():
+        print(f"built {path}", flush=True)
 
 
 if __name__ == "__main__":

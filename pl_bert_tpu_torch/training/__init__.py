@@ -1,2 +1,3 @@
-"""The train and eval steps (train_step.py) over the port's model, and
-the step profiler (profile.py)."""
+"""The Trainer entry point (train.py) over the train and eval steps
+(train_step.py), checkpoints (checkpoint.py), the metrics log
+(metrics.py) and the step profiler (profile.py)."""

@@ -1,0 +1,163 @@
+"""Metrics tracking / logging.
+
+A copy of ``pl_bert_tpu/training/metrics.py`` (``is_main_process``,
+``MetricsLogger``): the port runs one process, so it is always the main
+one.
+
+Reference contract (reference: train.py:231-240, 392-410): per-step
+phoneme_loss, rolling mean over ``log_interval`` steps, validation loss
+each save interval, all rank-0 gated; wandb backend when available.
+
+Additions: a JSONL metrics file in the run dir (observability without
+network egress) and throughput (steps/sec, tokens/sec) tracking.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from collections import deque
+
+import numpy as np
+
+
+def is_main_process() -> bool:
+    """The port runs single-process, single-card."""
+    return True
+
+
+class MetricsLogger:
+    def __init__(
+        self,
+        log_dir: str,
+        log_interval: int = 10,
+        wandb_project: str = "",
+        config: dict | None = None,
+    ) -> None:
+        self.log_interval = log_interval
+        self.rolling = deque(maxlen=log_interval)
+        self.enabled = is_main_process()
+        self._pending = None
+        self._wandb = None
+        self._file = None
+        self._last_time = time.perf_counter()
+        self._last_step = None
+        self._window_tokens = 0
+        if not self.enabled:
+            return
+        if wandb_project:
+            try:
+                import wandb
+
+                wandb.init(project=wandb_project, config=config or {})
+                self._wandb = wandb
+            except Exception as e:  # wandb absent or offline — degrade
+                print(f"[metrics] wandb unavailable ({e}); using stdout/jsonl")
+        os.makedirs(log_dir, exist_ok=True)
+        self._file = open(os.path.join(log_dir, "metrics.jsonl"), "a", buffering=1)
+
+    def log_step(self, step: int, epoch: int, metrics: dict, tokens_per_batch: int = 0):
+        """Record one step's metrics.
+
+        ``metrics`` values may be device arrays — they are buffered as-is
+        and only materialized every ``log_interval`` steps, so logging
+        adds NO host-device synchronization to the steps in between
+        (the reference's ``.item()`` per step forces one; with CUDA's
+        asynchronous launches that would serialize every step)."""
+        if not self.enabled:
+            return
+        self.rolling.append(metrics.get("phoneme_loss", metrics.get("loss", 0.0)))
+        # accumulate EVERY step's real token count: throughput must be
+        # window-total / window-time, not steps/sec × the boundary
+        # step's tokens (a ragged grad-accum tail landing on the log
+        # boundary would scale the whole window down by its fraction)
+        self._window_tokens += tokens_per_batch
+        if step % self.log_interval != 0:
+            # keep the newest metrics so flush() can emit the final
+            # partial window at the end of training
+            self._pending = (step, epoch, metrics, tokens_per_batch)
+            return
+        self._pending = None
+        record = {
+            "step": step,
+            "epoch": epoch,
+            **{k: float(v) for k, v in metrics.items()},
+        }
+        loss = record.get("phoneme_loss", record.get("loss", 0.0))
+        if len(self.rolling) == self.log_interval:
+            record["phoneme_loss_avg"] = float(
+                np.mean([float(v) for v in self.rolling])
+            )
+        now = time.perf_counter()
+        if self._last_step is not None and now > self._last_time:
+            sps = (step - self._last_step) / (now - self._last_time)
+            record["steps_per_sec"] = sps
+            if self._window_tokens:
+                record["tokens_per_sec"] = (
+                    self._window_tokens / (now - self._last_time)
+                )
+        self._last_time, self._last_step = now, step
+        self._window_tokens = 0
+        self._emit(record)
+        parts = [f"step {step}", f"epoch {epoch}", f"loss {loss:.4f}"]
+        if "phoneme_loss_avg" in record:
+            parts.append(f"avg {record['phoneme_loss_avg']:.4f}")
+        if "tokens_per_sec" in record:
+            parts.append(f"{record['tokens_per_sec']:,.0f} tok/s")
+        print("  ".join(parts), flush=True)
+
+    def flush(self) -> None:
+        """Emit the final partial-step record (training ended off the
+        log_interval grid)."""
+        if not self.enabled or getattr(self, "_pending", None) is None:
+            return
+        step, epoch, metrics, _ = self._pending
+        self._pending = None
+        record = {
+            "step": step,
+            "epoch": epoch,
+            **{k: float(v) for k, v in metrics.items()},
+        }
+        self._emit(record)
+
+    def log_validation(
+        self, step: int, epoch: int, val_loss: float, val_acc: float,
+        extras: dict | None = None,
+    ):
+        """``extras`` carries the multi-task grapheme-head metrics
+        (val_token_loss/val_token_accuracy) when the Trainer runs with
+        token ids; merged into the same record."""
+        if not self.enabled:
+            return
+        self._emit(
+            {
+                "step": step,
+                "epoch": epoch,
+                "val_phoneme_loss": val_loss,
+                "val_masked_accuracy": val_acc,
+                **(extras or {}),
+            }
+        )
+        line = (
+            f"Validation at step {step}: Phoneme Loss: {val_loss:.4f} "
+            f"Masked Acc: {val_acc:.4f}"
+        )
+        if extras:
+            line += (
+                f" Token Loss: {extras['val_token_loss']:.4f} "
+                f"Token Acc: {extras['val_token_accuracy']:.4f}"
+            )
+        print(line, flush=True)
+
+    def _emit(self, record: dict) -> None:
+        if self._wandb is not None:
+            self._wandb.log(record)
+        if self._file is not None:
+            self._file.write(json.dumps(record) + "\n")
+
+    def close(self) -> None:
+        if self._file is not None:
+            self._file.close()
+        if self._wandb is not None:
+            self._wandb.finish()

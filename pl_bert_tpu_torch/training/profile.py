@@ -1,16 +1,22 @@
 """Where a training step's device time goes, from ``torch.profiler``::
 
     python -m pl_bert_tpu_torch.training.profile [--steps 3]
+        [--attention_impl auto|pallas|xla] [--packed]
 
 Runs the port's train step at bench.py's workload (configs/config.yml's
 model: hidden 768, 12 heads, FFN 2048, 12 layers, L 512; bf16, dropout
 0.1, AdamW at 7e-5; random weights from a seed) on the CUDA card: the batch and dropout
 are ``Config()``'s, as in bench.py; two warm-up steps, then ``--steps``
-steps under the profiler. Prints the card
-(``nvidia-smi``), the step time, device time per step by kernel and by
-group (the port's kernels K3-K6, cuBLAS GEMMs, the rest), and the
-device's busy share of the window. Needs a CUDA card; there is no CPU
-fallback.
+steps under the profiler. ``--attention_impl`` picks the model's
+attention path (``pallas``: the per-head flash kernels K7/K8);
+``--packed`` feeds packed rows of a synthetic corpus (several samples a
+row, segment and position ids) and masks them on the device inside the
+step, as a run with ``ondevice_masking`` and ``sequence_packing`` does;
+without it the batches are full-length and masked on the host. Prints
+the card and its power limit (``nvidia-smi``), the step time, device
+time per step by kernel and by group (the port's kernels, cuBLAS GEMMs,
+the rest), and the device's busy share of the window. Needs a CUDA card;
+there is no CPU fallback.
 """
 
 from __future__ import annotations
@@ -25,9 +31,11 @@ import torch
 # kernel-name substrings → group, first match wins (the port's CUDA
 # kernels carry their template arguments in the demangled name)
 GROUPS = (
-    ("attention_fwd", "K3 attention"),
+    # the block path's K3/K4 and the flash path's K7/K8 run the same
+    # attention kernels (csrc/attention_tiles.cuh); one path a run
+    ("attention_fwd", "K3 / K7 attention forward"),
     ("gemm_bias<__nv_bfloat16, false>", "K3 projections"),
-    ("attention_bwd", "K4 attention"),
+    ("attention_bwd", "K4 / K8 attention backward"),
     ("gemm_bias<__nv_bfloat16, true>", "K4 projections"),
     ("_fwd_kernel", "K5 LN forward (Triton)"),
     ("_bwd_kernel", "K6 LN backward (Triton)"),
@@ -61,9 +69,15 @@ def main(argv=None) -> None:
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--top", type=int, default=25, help="kernels listed by device time")
     parser.add_argument("--json", default=None, help="also write the numbers here")
+    parser.add_argument("--attention_impl", default=None,
+                        help="the model's attention path (default: the config's, auto)")
+    parser.add_argument("--packed", action="store_true",
+                        help="packed rows masked on the device inside the step")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA card")
+    import dataclasses
+
     from pl_bert_tpu_torch.config import Config
     from pl_bert_tpu_torch.data.synthetic import full_length_batches
     from pl_bert_tpu_torch.models.albert import build_model, init_params
@@ -77,12 +91,25 @@ def main(argv=None) -> None:
     print(card, flush=True)
     config = Config()
     mp, tp = config.model_params, config.training_params
+    if args.attention_impl:
+        mp = dataclasses.replace(mp, attention_impl=args.attention_impl)
     L, batch, warmup = config.dataset_params.max_seq_length, tp.batch_size, 2
     model = init_params(build_model(mp, tp.mixed_precision), seed=0).to("cuda")
     tx = ts.make_optimizer(tp)
     state = ts.TrainState(model, tx.init(model))
-    step = ts.make_train_step(model, tx, seed=tp.seed)
-    pool = full_length_batches(4, batch, L)
+    masking_params, occupancy = None, 1.0
+    if args.packed:
+        from pl_bert_tpu_torch.data.masking import MaskingParams
+        from pl_bert_tpu_torch.data.packed import PackedSequenceDataset
+        from pl_bert_tpu_torch.training.train import make_synthetic_corpus
+
+        packed = PackedSequenceDataset(make_synthetic_corpus(1024), L)
+        occupancy = packed.packing_efficiency
+        pool = list(packed.batches(batch, epoch=1, seed=tp.seed))[:4]
+        masking_params = MaskingParams(max_seq_length=L)
+    else:
+        pool = full_length_batches(4, batch, L)
+    step = ts.make_train_step(model, tx, seed=tp.seed, masking_params=masking_params)
     for i in range(warmup):
         float(step(state, pool[i % len(pool)])[1]["loss"])
 
@@ -108,6 +135,8 @@ def main(argv=None) -> None:
     for name, (ms, _) in by_name.items():
         by_group[group_of(name)] = by_group.get(group_of(name), 0.0) + ms
     n = args.steps
+    print(f"attention_impl {mp.attention_impl}, "
+          f"{f'packed rows at {occupancy:.0%} occupancy, masked on the device' if args.packed else 'full-length rows masked on the host'}")
     print(f"B={batch} L={L} {tp.mixed_precision} dropout {mp.dropout}: "
           f"{wall_ms / n:.1f} ms a step with the profiler on, "
           f"{device_ms / n:.1f} ms of kernels a step; device busy {busy / window:.1%} of "
@@ -122,6 +151,7 @@ def main(argv=None) -> None:
     if args.json:
         with open(args.json, "w", encoding="utf-8") as f:
             json.dump({"card": card, "batch": batch, "steps": n,
+                       "attention_impl": mp.attention_impl, "packed": args.packed,
                        "wall_ms_per_step": wall_ms / n, "kernel_ms_per_step": device_ms / n,
                        "busy_share_window": busy / window, "busy_share_wall": busy / wall_ms,
                        "groups_ms_per_step": {g: ms / n for g, ms in by_group.items()},

@@ -16,25 +16,35 @@ The counterpart of ``pl_bert_tpu/training/train_step.py`` (:39-97
 - metrics ``loss``, ``phoneme_loss``, ``token_loss`` (0: phoneme-only),
   ``grad_norm`` (the averaged gradient's norm before clipping) and ``lr``.
 
-JAX's steps are pure; these update the model's parameters and the
-optimizer state in place (no second copy of either). Dropout draws one
-seed per site per layer application per micro-step as host ints from a
-``torch.Generator`` seeded from (seed, step), so a step is reproducible
-and reading a seed never syncs the device.
+With ``masking_params`` the batch carries only packed arrays
+(``label_ids``, ``word_ids``, ``lengths``, and for packed sequences
+``segment_ids``/``position_ids``) and whole-word masking runs on the
+device inside the step (``ops/ondevice_masking.py``), in the train, the
+accumulation and the eval step alike (:152-172, :231-236, :290-296,
+:348-350).
 
-Not ported yet — each raises where asked for: on-device masking,
-sequence packing, the multi-task grapheme head (see :func:`check_ported`).
+JAX's steps are pure; these update the model's parameters and the
+optimizer state in place (no second copy of either). Per micro-step a
+``torch.Generator`` seeded from (seed, step) draws, in this order, the
+masking seed (on-device masking only) and one dropout seed per site per
+layer application, as host ints, so a step is reproducible, reading a
+seed never syncs the device, and one seed list drives every attention
+path.
+
+Not ported yet — each raises where asked for: the multi-task grapheme
+head and a packed store directory (see :func:`check_ported`).
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Callable
 
-import numpy as np
 import torch
 
+from pl_bert_tpu_torch.data.pipeline import to_device
 from pl_bert_tpu_torch.models.albert import draw_dropout_seeds
 from pl_bert_tpu_torch.ops.masked_ce import (
     masked_accuracy,
@@ -46,12 +56,19 @@ from pl_bert_tpu_torch.ops.masked_ce import (
 def check_ported(config) -> None:
     """Raise ``NotImplementedError`` for a config whose training path is
     not ported yet."""
-    dp, mp = config.dataset_params, config.model_params
-    for flag, what in ((dp.ondevice_masking, "dataset_params.ondevice_masking"),
-                       (dp.sequence_packing, "dataset_params.sequence_packing"),
-                       (mp.num_token_vocab > 0, "model_params.num_token_vocab > 0")):
-        if flag:
-            raise NotImplementedError(f"{what} is not yet ported to pl_bert_tpu_torch")
+    tp, mp = config.training_params, config.model_params
+    if mp.num_token_vocab > 0:
+        raise NotImplementedError(
+            "model_params.num_token_vocab > 0 is not yet ported to pl_bert_tpu_torch")
+    name = tp.training_dataset
+    if os.path.isdir(name) and os.path.exists(os.path.join(name, "packed_meta.json")):
+        raise NotImplementedError(
+            f"training_dataset {name!r} is a packed store, which is not yet ported to "
+            "pl_bert_tpu_torch")
+    if (tp.data_axis, tp.model_axis) not in ((1, 1), (-1, 1)):
+        raise NotImplementedError(
+            f"data_axis {tp.data_axis} / model_axis {tp.model_axis}: more than one device "
+            "is not yet ported to pl_bert_tpu_torch")
 
 
 def decays(name: str) -> bool:
@@ -161,50 +178,79 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum((t * t).sum() for t in tensors))
 
 
-def _to_device(batch: dict, device) -> dict:
-    out = {}
-    for k, v in batch.items():
-        t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
-        out[k] = t.to(device, non_blocking=True)
-    return out
-
-
 def _forward_loss(model, mb: dict, deterministic: bool, dropout_seeds=None):
-    """(fp32 logits, phoneme loss) of one (micro-)batch."""
+    """(fp32 logits, phoneme loss) of one (micro-)batch; a packed batch's
+    ``segment_ids``/``position_ids`` go to the model."""
     ids, lengths = mb["masked_ids"], mb["lengths"]
     L = ids.shape[1]
     attention_mask = (torch.arange(L, device=ids.device)[None, :] < lengths[:, None]).int()
-    logits = model(ids.long(), attention_mask, deterministic=deterministic,
-                   dropout_seeds=dropout_seeds)
+    position_ids = mb.get("position_ids")
+    logits = model(
+        ids.long(), attention_mask, segment_ids=mb.get("segment_ids"),
+        position_ids=None if position_ids is None else position_ids.long(),
+        deterministic=deterministic, dropout_seeds=dropout_seeds,
+    )
     return logits, masked_phoneme_loss(logits, mb["label_ids"], mb["mask_positions"], lengths)
 
 
-def _check_batch(batch: dict) -> None:
+def _apply_ondevice_masking(batch: dict, mask_seed: int, masking_params) -> dict:
+    """Run the whole-word masking on the batch's device and assemble the
+    forward batch — shared by the train and eval steps so their
+    preprocessing can never diverge."""
+    from pl_bert_tpu_torch.ops.ondevice_masking import mask_batch
+
+    gen = torch.Generator(device=batch["label_ids"].device).manual_seed(mask_seed)
+    masked_ids, mask_positions = mask_batch(
+        batch["label_ids"], batch["word_ids"], batch["lengths"], gen, masking_params,
+    )
+    fwd = {
+        "masked_ids": masked_ids,
+        "label_ids": batch["label_ids"],
+        "mask_positions": mask_positions,
+        "lengths": batch["lengths"],
+    }
     for key in ("segment_ids", "position_ids"):
         if key in batch:
-            raise NotImplementedError(
-                "sequence packing (segment_ids/position_ids batches) is not yet "
-                "ported to pl_bert_tpu_torch"
-            )
+            fwd[key] = batch[key]
+    return fwd
 
 
-def make_train_step(model, tx: AdamW, grad_accum: int = 1, seed: int = 1):
+def _check_batch(batch: dict, masking_params) -> None:
+    """A packed batch (no ``masked_ids`` yet) is refused by a step built
+    for host masking, not trained on as if it were masked."""
+    if masking_params is None and "masked_ids" not in batch:
+        raise ValueError(
+            "batch has no masked_ids: a packed batch (label_ids, word_ids, lengths) needs a "
+            "step built with masking_params (dataset_params.ondevice_masking)"
+        )
+
+
+def make_train_step(model, tx: AdamW, grad_accum: int = 1, seed: int = 1,
+                    masking_params=None):
     """The step ``(state, batch) → (state, metrics)``. ``batch``: the
     arrays of ``data/collate.py``'s ``Batch`` (``masked_ids``,
     ``label_ids``, ``mask_positions``, ``lengths``), numpy or torch, with a
-    leading ``[grad_accum]`` axis when ``grad_accum > 1``. Metrics are
-    0-dim tensors on the model's device, except ``lr``, a float. Host
-    masking only: :func:`check_ported` refuses a config that asks for
-    on-device masking."""
+    leading ``[grad_accum]`` axis when ``grad_accum > 1``. With
+    ``masking_params`` the batch is a packed one (``label_ids``,
+    ``word_ids``, ``lengths`` [+ ``segment_ids``, ``position_ids``]) and
+    the masking runs on the device inside the step. Metrics are 0-dim
+    tensors on the model's device, except ``lr``, a float."""
     n_layers = model.cfg.num_hidden_layers
 
+    def masked(mb: dict, gen: torch.Generator) -> dict:
+        if masking_params is None:
+            return mb
+        mask_seed = int(torch.randint(0, 2**62, (1,), generator=gen))
+        return _apply_ondevice_masking(mb, mask_seed, masking_params)
+
     def step(state: TrainState, batch: dict):
-        _check_batch(batch)
+        _check_batch(batch, masking_params)
         device = next(state.model.parameters()).device
-        batch = _to_device(batch, device)
+        batch = to_device(batch, device)
         gen = torch.Generator().manual_seed(seed * 2**32 + state.step)
         state.model.zero_grad(set_to_none=True)
         if grad_accum == 1:
+            batch = masked(batch, gen)
             _, loss = _forward_loss(state.model, batch, False,
                                     draw_dropout_seeds(gen, n_layers))
             loss.backward()
@@ -215,7 +261,7 @@ def make_train_step(model, tx: AdamW, grad_accum: int = 1, seed: int = 1):
             p_sum = torch.zeros((), device=device)
             n_sum = torch.zeros((), device=device)
             for i in range(grad_accum):
-                mb = {k: v[i] for k, v in batch.items()}
+                mb = masked({k: v[i] for k, v in batch.items()}, gen)
                 n = samples_with_masks(mb["mask_positions"], mb["lengths"])
                 _, loss = _forward_loss(state.model, mb, False,
                                         draw_dropout_seeds(gen, n_layers))
@@ -241,16 +287,31 @@ def make_train_step(model, tx: AdamW, grad_accum: int = 1, seed: int = 1):
     return step
 
 
-def make_eval_step(model):
-    """The eval step ``batch → (phoneme_loss, masked accuracy,
-    n_masked)``: the deterministic forward (the serving kernels), no
-    gradients. ``n_masked`` lets the caller leave batches without masks
-    out of a validation mean, as the JAX trainer does."""
+def batch_to_arrays(batch) -> dict:
+    """``data/collate.py``'s ``Batch`` → the dict of arrays the steps take."""
+    return {
+        "masked_ids": batch.masked_ids,
+        "label_ids": batch.label_ids,
+        "mask_positions": batch.mask_positions,
+        "lengths": batch.lengths,
+    }
+
+
+def make_eval_step(model, masking_params=None):
+    """The eval step ``(batch, mask_seed) → (phoneme_loss, masked
+    accuracy, n_masked)``: the deterministic forward (the serving
+    kernels), no gradients. With ``masking_params`` the masking runs on
+    the device from ``mask_seed`` (pass a fixed one per batch so
+    validation is the same across runs). ``n_masked`` lets the caller
+    leave batches without masks out of a validation mean, as the JAX
+    trainer does."""
 
     @torch.no_grad()
-    def step(batch: dict):
-        _check_batch(batch)
-        batch = _to_device(batch, next(model.parameters()).device)
+    def step(batch: dict, mask_seed: int = 0):
+        _check_batch(batch, masking_params)
+        batch = to_device(batch, next(model.parameters()).device)
+        if masking_params is not None:
+            batch = _apply_ondevice_masking(batch, mask_seed, masking_params)
         logits, loss_p = _forward_loss(model, batch, True)
         acc = masked_accuracy(logits, batch["label_ids"], batch["mask_positions"],
                               batch["lengths"])

@@ -200,3 +200,92 @@ def test_train_step_kernel_path_follows_plain_path(dev):
     for k, p in zip(metrics["auto"], metrics["eager"]):
         assert k["loss"] == pytest.approx(p["loss"], rel=1e-5)
         assert k["grad_norm"] == pytest.approx(p["grad_norm"], rel=1e-4)
+
+
+def _flash_case(dev, dtype, B=3, L=100, H=4, segments=True, fused=False):
+    """q, k, v, dout [B, L, H, 64] (``fused``: views of one [B, L, 3·H·64]
+    projection), a padding bias with a fully masked row, packed segments."""
+    from pl_bert_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(L + H)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    D = fa.HEAD_DIM
+    qkv = t(rng.standard_normal((B, L, 3 * H * D)) * 0.7).to(dtype)
+    q, k, v = (s.reshape(B, L, H, D) for s in qkv.split(H * D, dim=-1))
+    if not fused:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    dout = t(rng.standard_normal((B, L, H, D))).to(dtype)
+    lengths = np.array([L, L // 3, 0])[:B]
+    valid = np.arange(L)[None] < lengths[:, None]
+    seg = None
+    if segments:
+        seg = t(np.where(valid, (np.arange(L)[None] >= L // 4).astype(np.int32), -1)).int()
+    bias_row, seg_row = ab.rows(attention_bias_from_mask(t(valid)), seg, B, L)
+    return q, k, v, dout, bias_row, seg_row
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,H,segments,fused,rate", [
+    (128, 4, False, False, 0.0), (100, 4, True, True, 0.0), (200, 2, True, False, 0.1),
+    (512, 12, True, True, 0.1),
+])
+def test_flash_attention_kernels_match_plain(dev, dtype, L, H, segments, fused, rate):
+    """K7 and K8 against their plain versions on the same inputs, the
+    plain ones dropping with the mask the kernels' Philox code writes."""
+    from pl_bert_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, dout, bias_row, seg_row = _flash_case(dev, dtype, 3, L, H, segments, fused)
+    B = q.shape[0]
+    seed = 11 if rate else None
+    keep = ab.dropout_mask(11, rate, B, H, L, dev) if rate else None
+    counts = (fa.LAUNCHES.count, fa.LAUNCHES_BWD.count)
+    out = fa.flash_attention_fwd(q, k, v, bias_row, seg_row, rate, seed)
+    grads = fa.flash_attention_bwd(dout, q, k, v, bias_row, seg_row, rate, seed)
+    ref = fa.flash_attention_plain(q, k, v, bias_row, seg_row, rate, seed, keep=keep)
+    rgrads = fa.flash_attention_bwd_plain(dout, q, k, v, bias_row, seg_row, rate, seed, keep=keep)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES.count, fa.LAUNCHES_BWD.count) == (counts[0] + 1, counts[1] + 1)
+    assert out.shape == q.shape and out.dtype == dtype
+    for a, r in [(out, ref), *zip(grads, rgrads)]:
+        _close(a, r, dtype)
+
+
+def test_flash_attention_autograd_runs_the_kernels(dev):
+    """``flash_attention`` under autograd launches K7 once forward and K8
+    once backward, and drops what the block path drops at one seed."""
+    from pl_bert_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, dout, _, _ = _flash_case(dev, torch.bfloat16, 2, 128, 4, False)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    counts = (fa.LAUNCHES.count, fa.LAUNCHES_BWD.count)
+    out = fa.flash_attention(q, k, v, dropout_rate=0.1, dropout_seed=3)
+    out.backward(dout)
+    assert (fa.LAUNCHES.count, fa.LAUNCHES_BWD.count) == (counts[0] + 1, counts[1] + 1)
+    keep = ab.dropout_mask(3, 0.1, 2, 4, 128, dev)
+    ref = fa.flash_attention_plain(q.detach(), k.detach(), v.detach(), None, None, 0.1, 3,
+                                   keep=keep)
+    _close(out, ref, torch.bfloat16)
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+def test_flash_attention_refuses_what_is_not_built_on_cuda(dev):
+    from pl_bert_tpu_torch.ops import flash_attention as fa
+
+    q = torch.zeros(1, 64, 2, 128, device=dev)  # head_dim 128
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 64, 2, 64, device=dev)
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention(q, q, q, out_dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4096, 768), (3, 100, 200)])
+def test_add_copy_kernel_is_bitwise_the_plain_version(dev, dtype, shape):
+    rng = np.random.default_rng(2)
+    x, res = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+              .to(dev, dtype) for _ in range(2))
+    before = fused_ln.LAUNCHES_COPY.count
+    out = fused_ln.add_copy(x, res)
+    assert fused_ln.LAUNCHES_COPY.count == before + 1
+    assert out.dtype == dtype and torch.equal(out, fused_ln.add_copy_plain(x, res))

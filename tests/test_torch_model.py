@@ -113,6 +113,40 @@ def test_forward_matches_jax_kernels(jax_params, monkeypatch):
     np.testing.assert_allclose(p.numpy(), np.asarray(ref_p), atol=5e-4, rtol=1e-3)
 
 
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_forward_matches_jax_on_each_attention_path(jax_params, monkeypatch, impl):
+    """The port's ``pallas`` (per-head flash kernels between dense
+    projections) and ``xla`` (plain) paths against the JAX model
+    configured the same way, fp32, at the gate of
+    ``test_forward_matches_jax_kernels`` (which covers ``auto``). For
+    ``pallas`` the JAX side's TPU gates are forced on, so its flash
+    kernel and fused LN run in interpret mode; ``xla`` is its einsum
+    attention."""
+    from pl_bert_tpu.models.albert import AlbertConfig as JaxConfig
+    from pl_bert_tpu.ops import attention as jax_attn
+    from pl_bert_tpu.ops import fused_ln as jax_ln
+
+    if impl == "pallas":
+        monkeypatch.setattr(jax_attn, "pallas_supported", lambda *a, **k: True)
+        monkeypatch.setattr(jax_ln, "fused_supported", lambda *a, **k: True)
+    mp = dataclasses.replace(MP, attention_impl=impl)
+    ids, mask = _batch(seed=3)
+    jax_model = JaxAlbertModel(JaxConfig.from_params(mp, dtype=jnp.float32))
+    with pltpu.force_tpu_interpret_mode():
+        ref_h, ref_p = jax_model.apply(
+            {"params": jax_params["encoder"]}, jnp.asarray(ids), jnp.asarray(mask),
+            deterministic=True,
+        )
+    model = AlbertModel.from_state_dict(
+        AlbertConfig.from_params(mp), bridge.state_dict_from_jax(jax_params["encoder"])
+    )
+    assert model.encoder.layer.attention.impl == {"pallas": "flash", "xla": "eager"}[impl]
+    with torch.inference_mode():
+        h, p = model(torch.from_numpy(ids), torch.from_numpy(mask))
+    np.testing.assert_allclose(h.numpy(), np.asarray(ref_h), atol=5e-4, rtol=1e-3)
+    np.testing.assert_allclose(p.numpy(), np.asarray(ref_p), atol=5e-4, rtol=1e-3)
+
+
 def test_eager_and_kernel_impls_agree_on_cpu(jax_params):
     """On CPU tensors the kernel path's wrappers run the plain versions,
     so both impls give the same numbers; bf16 stays within rounding."""

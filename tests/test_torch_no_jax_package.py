@@ -1,7 +1,8 @@
 """The port stands alone: in a fresh interpreter where importing ``jax``,
-``flax`` or the JAX package ``pl_bert_tpu`` raises, every module of
-``pl_bert_tpu_torch`` and every module ``chip_smoke.py`` imports load,
-and the port's HTTP server builds on the CPU and answers a request."""
+``flax``, ``orbax`` or the JAX package ``pl_bert_tpu`` raises, every
+module of ``pl_bert_tpu_torch`` and every module ``chip_smoke.py``
+imports load, the port's HTTP server builds on the CPU and answers a
+request, and the port's Trainer runs a packed run and resumes it."""
 
 import ast
 import subprocess
@@ -16,7 +17,7 @@ import importlib.abc, sys
 class _Blocked(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "flax", "pl_bert_tpu"):
+        if top in ("jax", "jaxlib", "flax", "orbax", "pl_bert_tpu"):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -59,13 +60,19 @@ def test_every_port_module_and_smoke_import_loads_without_the_jax_package(tmp_pa
     mods = _port_modules()
     smoke = [m for m in _smoke_imports() if m != "torch.nn.functional"]
     assert "pl_bert_tpu_torch.training.train_step" in mods
+    for new in ("ops.flash_attention", "ops.ondevice_masking", "data.packed", "data.pipeline",
+                "training.checkpoint", "training.metrics", "training.train", "utils.profiler",
+                "tools.bench_fused_ln"):
+        assert f"pl_bert_tpu_torch.{new}" in mods, new
+    assert "pl_bert_tpu_torch.training.train" in smoke
+    assert "pl_bert_tpu_torch.tools" in smoke or "pl_bert_tpu_torch.tools.bench_fused_ln" in smoke
     assert any(m.startswith("pl_bert_tpu_torch") for m in smoke)
     out = _run(
         "import importlib\n"
         "try:\n    import pl_bert_tpu\nexcept ImportError:\n    print('blocked')\n"
         f"for m in {mods + smoke!r}:\n    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'pl_bert_tpu'))\n"
+        "('jax', 'flax', 'orbax', 'pl_bert_tpu'))\n"
         "assert not bad, bad\nprint('ok')\n",
         tmp_path,
     )
@@ -109,3 +116,37 @@ assert not bad, bad
 print("served")
 '''
     assert _run(code, tmp_path).split() == ["served"]
+
+
+def test_port_trainer_runs_and_resumes_without_the_jax_package(tmp_path):
+    code = f'''
+import os, yaml
+from pl_bert_tpu_torch.training.train import train
+from pl_bert_tpu_torch.training.checkpoint import list_checkpoints
+
+cfg = {str(tmp_path / "cfg.yml")!r}
+raw = {{
+    "training_params": dict(output_dir={str(tmp_path / "runs")!r}, mixed_precision="fp32",
+                            batch_size=4, save_interval=2, log_interval=1, num_steps=2,
+                            training_dataset="synthetic:80:0:3-12"),
+    "dataset_params": dict(max_seq_length=64, ondevice_masking=True, sequence_packing=True),
+    "model_params": dict(hidden_size=128, num_attention_heads=2, intermediate_size=256,
+                         max_position_embeddings=64, num_hidden_layers=2, embedding_size=32,
+                         attention_impl="pallas"),
+}}
+def write(path, steps):
+    raw["training_params"]["num_steps"] = steps
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+write(cfg, 2)
+args = {{"config_path": cfg, "run_name": "r", "device": "cpu"}}
+assert train(args) == 2
+write(os.path.join({str(tmp_path / "runs" / "r")!r}, "cfg.yml"), 4)
+assert train(args) == 4
+assert list_checkpoints({str(tmp_path / "runs" / "r")!r}) == [2, 4]
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "flax", "orbax", "pl_bert_tpu"))
+assert not bad, bad
+print("trained")
+'''
+    assert _run(code, tmp_path).split()[-1] == "trained"

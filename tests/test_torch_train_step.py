@@ -98,6 +98,34 @@ def test_trajectory_matches_jax(batches, jax_params, accum, schedule):
         np.testing.assert_allclose(v.numpy(), final[k].numpy(), atol=3e-4, rtol=0, err_msg=k)
 
 
+@pytest.mark.parametrize("impl,steps", [("pallas", STEPS), ("xla", STEPS // 2)])
+def test_trajectory_matches_jax_on_each_attention_path(batches, jax_params, impl, steps):
+    """20 steps on the port's ``pallas`` path (K7/K8's plain versions
+    between dense projections, on the CPU) and 10 on its ``xla`` path
+    follow the JAX step configured the same way — off the TPU the JAX
+    model falls back to its einsum attention, the same function — within
+    the rtol 1e-4 of ``test_trajectory_matches_jax`` (which covers
+    ``auto``)."""
+    mp = dataclasses.replace(MP, attention_impl=impl)
+    tp = TrainingParams(learning_rate=1e-3)
+    tx = jax_ts.make_optimizer(tp)
+    jstep = jax_ts.make_train_step(jax_build_model(mp, "fp32"), tx, donate=False)
+    jstate = jax_ts.TrainState(jax_params, tx.init(jax_params), jnp.int32(0))
+    model, ptx, state = _port_state(jax_params, mp=mp, tp=tp)
+    assert model.encoder.encoder.layer.attention.impl == {"pallas": "flash",
+                                                          "xla": "eager"}[impl]
+    step = ts.make_train_step(model, ptx)
+    for s in range(steps):
+        jstate, jm = jstep(jstate, batches[s], jax.random.PRNGKey(0))
+        state, m = step(state, batches[s])
+        for k in ("loss", "phoneme_loss", "grad_norm"):
+            np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-4, atol=1e-12,
+                                       err_msg=f"step {s} {k}")
+    final = bridge.model_state_dict_from_jax(jax.tree.map(np.asarray, jstate.params))
+    for k, v in model.state_dict().items():
+        np.testing.assert_allclose(v.numpy(), final[k].numpy(), atol=3e-4, rtol=0, err_msg=k)
+
+
 def test_eval_step_matches_jax(batches, jax_params):
     jeval = jax_ts.make_eval_step(jax_build_model(MP, "fp32"))
     model, _, _ = _port_state(jax_params)
@@ -161,25 +189,37 @@ def test_dropout_steps_reproducible_and_pooler_not_decayed(batches, jax_params):
 
 
 @pytest.mark.parametrize("section,key", [
-    ("dataset_params", "ondevice_masking"), ("dataset_params", "sequence_packing"),
+    ("training_params", "training_dataset"), ("training_params", "model_axis"),
     ("model_params", "num_token_vocab"),
 ])
-def test_not_yet_ported_raises(section, key):
-    cfg = Config.from_dict({section: {key: 8 if key == "num_token_vocab" else True}})
+def test_not_yet_ported_raises(section, key, tmp_path):
+    """What still waits raises: the multi-task head, a packed store
+    directory, more than one device. On-device masking and sequence
+    packing are ported and pass."""
+    (tmp_path / "packed_meta.json").write_text("{}")
+    value = {"training_dataset": str(tmp_path), "model_axis": 2, "num_token_vocab": 8}[key]
+    cfg = Config.from_dict({section: {key: value}})
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ts.check_ported(cfg)
     if key == "num_token_vocab":
         with pytest.raises(NotImplementedError, match="not yet ported"):
             build_model(cfg.model_params)
+    ts.check_ported(Config.from_dict(
+        {"dataset_params": {"ondevice_masking": True, "sequence_packing": True}}))
 
 
 def test_step_refuses_packed_batches(batches, jax_params):
-    """A packed batch (segment ids) is refused, not trained on as if
-    unpacked."""
+    """A packed batch (label ids and word ids, nothing masked yet) is
+    refused by steps built for host masking, not trained on as if it
+    were masked; a masked batch that carries segment ids trains."""
     model, tx, state = _port_state(jax_params)
     step = ts.make_train_step(model, tx)
-    packed = dict(batches[0], segment_ids=np.zeros((B, L), np.int32))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    packed = {"label_ids": batches[0]["label_ids"], "lengths": batches[0]["lengths"],
+              "word_ids": np.zeros((B, L), np.int32),
+              "segment_ids": np.zeros((B, L), np.int32)}
+    with pytest.raises(ValueError, match="masking_params"):
         step(state, packed)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="masking_params"):
         ts.make_eval_step(model)(packed)
+    _, m = step(state, dict(batches[0], segment_ids=np.zeros((B, L), np.int32)))
+    assert np.isfinite(float(m["loss"]))
