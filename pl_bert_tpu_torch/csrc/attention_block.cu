@@ -3,34 +3,37 @@
 //
 // Replaces the Pallas kernels of pl_bert_tpu/ops/attention_block.py:
 //   - the primal-only ("light") forward, _fwd_kernel_light_full (one grid
-//     program per batch item, bf16) and _fwd_kernel_light (per 128-lane head
-//     group, fp32) -- K1/K2 -- via plbt_attention_block_fwd with no stats;
+//     program per batch item, bf16) -- K1 -- and _fwd_kernel_light (per
+//     128-lane head group, fp32) -- K2 -- via plbt_attention_block_fwd with
+//     no stats;
 //   - the saving training forward _fwd_kernel (K3), via the same entry
 //     with stats: the same kernels, so both forwards return identical
 //     values, as the JAX custom-VJP contract requires (:196-198);
 //   - its backward _bwd_kernel (K4), via plbt_attention_block_bwd.
-// One design covers bf16 and fp32, any sequence length, head_dim 64 or 128.
-// The attention kernels (steps 2 of the forward, 2-3 of the backward) are
-// those of attention_tiles.cuh, shared with flash_attention.cu; the GEMM is
-// here.
+// Any sequence length, head_dim 64 or 128.
 //
 // Forward, three launches on the caller's stream (the wrapper allocates):
 //   1. gemm:           qkv[M, 3P] = x[M, E] . [Wq|Wk|Wv][E, 3P] + [bq|bk|bv]
-//   2. attention_fwd:  ctx[M, P]  = dropout(softmax(q k^T / sqrt(D) + bias
+//   2. attention fwd:  ctx[M, P]  = dropout(softmax(q k^T / sqrt(D) + bias
 //                                   [+ seg])) v, and for the training forward
 //                                   the row max m and denominator l [B, H, L]
 //   3. gemm:           out[M, E]  = ctx[M, P] . Wo[P, E] + bo
-// M = B*L. Accumulation, the bias adds and the softmax are fp32; q/k/v, the
+// M = B*L. In bf16 (what serving and training run) the three run on the
+// tensor cores: gemm_bias_sm90 (gemm_sm90.cuh: wgmma fed by a TMA ring)
+// and attention_fwd_sm90 (attention_tiles.cuh: wgmma for q.k and, from
+// registers, p.v). In fp32 (K2, fp32 K3) they are gemm_bias and
+// attention_fwd on the CUDA cores, since tensor cores would mean TF32.
+// Accumulation, the bias adds and the softmax are fp32; q/k/v, the
 // (dropped-out) probabilities and ctx are rounded to the compute type T at
 // the points where the TPU kernel rounds them (attention_block.py:128-139,
 // 159-168). The training forward saves qkv, ctx and (m, l): the TPU's
 // q2/k2/v2/o2 and md [B,G,L,8].
 //
-// Backward, four launches:
+// Backward, four launches, on the CUDA cores in both types:
 //   1. gemm (B^T):       do[M, P]   = dout[M, E] . Wo[P, E]^T          (:331-334)
 //   2. attention_bwd_dq: per query tile, pass 1 delta = sum_j dpd.pd, pass 2
-//                        dq = ds . k, with p = exp(s - m)/l recomputed bitwise
-//                        as the forward made it (:350-354) and
+//                        dq = ds . k, with p = exp(s - m)/l recomputed from
+//                        the saved m and l (:350-354) and
 //                        ds = ((pd.dpd - p.delta) * scale) rounded (:372-373)
 //   3. attention_bwd_dkdv: per key tile, looping over the query tiles:
 //                        dv = pd^T . do (pd rounded), dk = ds^T . q; one
@@ -48,25 +51,29 @@
 // regenerates the mask; nothing stores it. plbt_attention_dropout_mask
 // writes the same mask out, for checks only.
 //
-// What bounds it on the card: at [8, 512, 768] the forward is 25.7 GFLOP of
-// products (19.3 in the two projections, 6.4 in q.k and p.v) against ~60 MB
-// of device-memory traffic, so it is bound by arithmetic; the backward does
-// about 2.3x that. This version does the arithmetic on the CUDA cores in
-// fp32 (no tensor cores), so it runs far below the card's bf16 tensor rate;
-// the attention kernels recompute q.k (twice in the forward, to round the
-// normalised probabilities; three times in the backward) rather than store
-// [L, L] tiles. Scores never leave shared memory. Right first: tensor cores
-// (mma.sync, then wgmma with TMA) are the next steps.
+// What bounds it on the card: at [8, 512, 768] the forward is 25.8 GFLOP of
+// products (19.3 in the two projections, 6.4 in q.k and p.v) against ~17 MB
+// of x, weights and output, so the tensor-core rate bounds it (0.026 ms at
+// 989 TFLOP/s); the backward does about 2.3x the work. The bf16 forward's
+// design answers that bound: every product on wgmma, operands brought in by
+// TMA and never converted in shared memory, q.k recomputed in the
+// attention's second pass rather than an [L, L] tile stored. The bf16
+// kernels take row strides and bases that are multiples of 16 bytes (E
+// a multiple of 8); the wrapper refuses other shapes. The backward (K4)
+// still runs fp32 FMA on the CUDA cores: its redesign is a later step.
 
 #include "attention_tiles.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// C[M, N] = A[M, K] . op(B) (+ bias[N]); op(B) = B[K, N] row-major, or with
-// TB the transpose of B[N, K] row-major. fp32 accumulation, the bias added
-// in fp32 before the one rounding to T. A 128x128 tile per block, 16 deep;
-// each of 256 threads holds 8x8 outputs at rows ty + 16i and columns
+// C[M, N] = A[M, K] . op(B) (+ bias[N]) on the CUDA cores: the fp32
+// forward's projections and both types' backward ones (TB). op(B) = B[K, N]
+// row-major, or with TB the transpose of B[N, K] row-major. fp32
+// accumulation, the bias added in fp32 before the one rounding to T. A
+// 128x128 tile per block, 16 deep; each of 256 threads holds 8x8 outputs
+// at rows ty + 16i and columns
 // tx + 16j, so shared-memory reads are broadcast or conflict-free and
 // global stores are 16 consecutive elements.
 constexpr int GBM = 128, GBN = 128, GBK = 16, GTHREADS = 256;
@@ -156,13 +163,23 @@ cudaError_t launch_gemm(const void* A, const void* B, const void* bias, void* C,
   return cudaGetLastError();
 }
 
+// The forward's projections: bf16 on the tensor cores, fp32 on the CUDA cores
+template <typename T>
+cudaError_t launch_fwd_gemm(const void* A, const void* B, const void* bias, void* C, int M,
+                            int N, int K, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return launch_gemm_sm90(A, B, bias, C, M, N, K, stream);
+  else
+    return launch_gemm<T, false>(A, B, bias, C, M, N, K, stream);
+}
+
 template <typename T, int D>
 cudaError_t run_fwd(const void* x, const void* wqkv, const void* bqkv, const void* wo,
                     const void* bo, const void* bias_row, const void* seg_row, void* qkv,
                     void* ctx, void* out, void* stat_m, void* stat_l, int B, int L, int E,
                     int P, int H, Dropout drop, cudaStream_t stream) {
   const int M = B * L;
-  cudaError_t err = launch_gemm<T, false>(x, wqkv, bqkv, qkv, M, 3 * P, E, stream);
+  cudaError_t err = launch_fwd_gemm<T>(x, wqkv, bqkv, qkv, M, 3 * P, E, stream);
   if (err != cudaSuccess) return err;
   // q, k and v are the three P-wide sections of a qkv row
   const T* sec = static_cast<const T*>(qkv);
@@ -172,7 +189,7 @@ cudaError_t run_fwd(const void* x, const void* wqkv, const void* bqkv, const voi
       Rows<T>{static_cast<T*>(ctx), P}, static_cast<float*>(stat_m),
       static_cast<float*>(stat_l), B, L, H, drop, stream);
   if (err != cudaSuccess) return err;
-  return launch_gemm<T, false>(ctx, wo, bo, out, M, E, P, stream);
+  return launch_fwd_gemm<T>(ctx, wo, bo, out, M, E, P, stream);
 }
 
 template <typename T, int D>

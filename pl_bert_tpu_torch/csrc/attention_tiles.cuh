@@ -1,12 +1,15 @@
 // Softmax-attention kernels for Hopper shared by the attention block
 // (attention_block.cu: K1-K4) and the per-head flash attention
-// (flash_attention.cu: K7, K8): the Philox dropout, the score rule, the
-// 64x64 tile products, and the three kernels built from them
-//   attention_fwd       o = dropout(softmax(q k^T / sqrt(D) + bias [+ seg])) v
+// (flash_attention.cu: K7, K8): the Philox dropout, the score rule, and
+//   attention_fwd_sm90  bf16 o = dropout(softmax(q k^T / sqrt(D) + bias
+//                       [+ seg])) v on the tensor cores (wgmma, TMA) --
+//                       the forward of K1, K3 and K7 in bf16
+//   attention_fwd       the same in fp32 on the CUDA cores (K2, fp32 K3/K7)
 //   attention_bwd_dq    delta = sum_j dpd.pd and dq = ds . k, per query tile
 //   attention_bwd_dkdv  dv = pd^T . do and dk = ds^T . q, per key tile
-// Each takes q, k, v (and do, and the outputs) as Rows: a base pointer and
-// the distance between rows, so the same kernel reads the three sections of
+// (the backward, K4 and K8, in both types on the CUDA cores). Each takes
+// q, k, v (and do, and the outputs) as Rows: a base pointer and the
+// distance between rows, so the same kernel reads the three sections of
 // the block's qkv [B*L, 3P] buffer or three separate [B, L, H, D] tensors
 // (contiguous, or views of one fused projection) without a transposed copy.
 //
@@ -14,9 +17,29 @@
 // probabilities are rounded to the compute type T before p.v, and ds before
 // ds.k and ds^T.q, where the TPU kernels round them
 // (pl_bert_tpu/ops/attention_block.py:128-139, :372-373;
-// pl_bert_tpu/ops/flash_attention.py:65-69, :110). The arithmetic runs on
-// the CUDA cores in fp32 (no tensor cores yet); q.k is recomputed rather
-// than an [L, L] tile stored, and scores never leave shared memory.
+// pl_bert_tpu/ops/flash_attention.py:65-69, :110). Every kernel makes two
+// passes over the key tiles (m and l, then the normalised p), recomputing
+// q.k rather than storing an [L, L] tile; scores never leave the chip.
+//
+// What bounds the bf16 forward: at [8, 512, 12, 64] its q.k and p.v are
+// 6.4 GFLOP (9.7 with q.k formed again in pass 2) against 25 MB of q, k, v
+// and o, near the card's ridge of ~295 FLOP a byte; with dropout the
+// Philox draws (ten rounds of two 32-bit multiplies per probability) are
+// work of the same size on the integer units. The design: one warpgroup
+// per (64-query tile, head, batch item) forms S = Q K^T with
+// wgmma.m64n64k16 from shared memory, keeps the softmax statistics in
+// registers (a row's 64 scores sit on the four threads of a quad), and in
+// pass 2 turns S into the bf16 probabilities in registers, which are
+// wgmma's A operand for O += P V (the RS form; V read MN-major). K and V
+// tiles arrive by TMA through a 3-D map over [B, L, H*D] into a two-buffer
+// ring, the next tile loading while this one is used; TMA zero-fills rows
+// past L within each batch item. Its products are a small part of its
+// time: the softmax arithmetic on the CUDA cores, the Philox draws and the
+// K/V reloads from L2 (each K tile twice per query tile) set the rest. The
+// backward forms q.k with dot_tile on the CUDA cores, in another summation
+// order than the tensor cores: its recomputed scores match the bf16
+// forward's to fp32 rounding, not bit for bit (the K4 gates, run on K3's
+// saved m and l, hold it).
 
 #pragma once
 
@@ -25,6 +48,10 @@
 #include <math_constants.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -91,11 +118,6 @@ inline Dropout make_dropout(int on, unsigned int seed, unsigned int thresh, floa
   return d;
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 // One of q, k, v, do, o or a gradient: element (b, row, h, d) sits at
 // ptr[(b*L + row)*ld + h*D + d], so rows are ld elements apart, batch
 // items L rows apart, and a head's D columns are contiguous.
@@ -141,8 +163,11 @@ __device__ __forceinline__ void load_row_info(float* rbias, float* rseg,
 }
 
 // s[i][j] = sum_d A[4ty+i][d] * Bm[tx+16j][d], the products added in
-// order d = 0..D-1 with fmaf: every kernel below computes q.k this way,
-// so the backward reproduces the forward's scores bitwise.
+// order d = 0..D-1 with fmaf: the CUDA-core kernels below compute q.k this
+// way, so the fp32 backward reproduces the fp32 forward's scores bitwise.
+// The bf16 forward (attention_fwd_sm90) sums on the tensor cores instead,
+// so the bf16 backward's scores match it to fp32 rounding, not bitwise,
+// until the backward moves to the tensor cores too.
 template <int D>
 __device__ __forceinline__ void dot_tile(const float* A, const float* Bm, int tx, int ty,
                                          float (&s)[4][4]) {
@@ -231,9 +256,11 @@ __device__ __forceinline__ void key_tile_scores(
 }
 
 // The row max m and the denominator l = sum exp(s - m) of this thread's four
-// query rows over all keys, kept online in fp32. The forward's first pass,
-// and the first pass of a backward that was handed no statistics: the same
-// code, so both get the same bits.
+// query rows over all keys, kept online in fp32. The fp32 forward's first
+// pass, and the first pass of a backward that was handed no statistics: the
+// same code, so in fp32 both get the same bits (the bf16 forward forms its
+// statistics on the tensor cores, which K8's recompute matches to fp32
+// rounding).
 template <typename T, int D>
 __device__ __forceinline__ void row_stats(
     const float* Qs, float* Ks, float* kbias, float* kseg, const float* qseg, const T* kbase,
@@ -270,8 +297,9 @@ constexpr size_t fwd_smem_floats() {
   return 3 * AQ * (D + 1) + AQ * 65 + 3 * AK;
 }
 
-// One block per (64-row query tile, head, batch item), two passes over
-// the key tiles:
+// fp32 (K2, and K3/K7 in fp32) on the CUDA cores, where tensor cores would
+// mean TF32 and about three decimal digits. One block per (64-row query
+// tile, head, batch item), two passes over the key tiles:
 //   pass 1: the row max m and the denominator l (row_stats);
 //   pass 2: p = exp(s - m) / l, dropped out, rounded to T as the TPU kernel
 //           rounds its probabilities before p.v, and o += p . v.
@@ -344,6 +372,195 @@ attention_fwd(Rows<const T> q, Rows<const T> k, Rows<const T> v,
       stat_l[at] = l_run[i];
     }
   }
+}
+
+// --- the bf16 forward on the tensor cores ---------------------------------------
+
+// Q, a two-buffer ring of K and of V tiles (64 rows x D, D/64 boxes of
+// 8 KB each), the key tiles' bias and segments, three barriers
+template <int D>
+constexpr size_t fwd_sm90_smem() {
+  return 1024 + 5 * (D / 64) * 8192 + 4 * AK * sizeof(float) + 3 * sizeof(uint64_t);
+}
+
+// attention_fwd's function for bf16, on the tensor cores; one warpgroup per
+// (64-row query tile, head, batch item). Warp w holds query rows 16w..16w+15:
+// thread (lane) rows r0 = 16w + lane/4 and r0 + 8, and of each key tile the
+// columns 8c + 2(lane%4) + {0, 1}, c < 8 -- the wgmma accumulator layout.
+// The loads are a sequence of 2n tiles (n = key tiles): pass 1's K tiles,
+// then pass 2's K and V tiles, load i into buffer i % 2, issued by thread 0
+// once every warp has finished with load i - 2.
+template <int D>
+__global__ void __launch_bounds__(128)
+attention_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, const float* __restrict__ bias_row,
+                   const float* __restrict__ seg_row, Rows<__nv_bfloat16> o,
+                   float* __restrict__ stat_m, float* __restrict__ stat_l, int L, float scale,
+                   Dropout drop) {
+  constexpr uint32_t TILE = (D / 64) * 8192;  // 64 rows of one head
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align_1k(smem_raw);
+  uint8_t* Ks = Qs + TILE;      // [2][TILE]
+  uint8_t* Vs = Ks + 2 * TILE;  // [2][TILE]
+  float* kbias = reinterpret_cast<float*>(Vs + 2 * TILE);  // [2][64]
+  float* kseg = kbias + 2 * AK;                             // [2][64]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(kseg + 2 * AK);  // buffers 0, 1; Q
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane % 4;
+  const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const uint32_t stream = (uint32_t)(b * H + h);
+  const int n = (L + AK - 1) / AK;
+  const bool use_seg = seg_row != nullptr;
+
+  auto load = [&](int i) {  // thread 0
+    const int s = i & 1, k0 = (i % n) * AK;
+    const bool with_v = i >= n;
+    mbar_expect_tx(&bar[s], (with_v ? 2u : 1u) * TILE);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+      tma_load_3d(Ks + s * TILE + c * 8192, &kmap, &bar[s], h * D + 64 * c, k0, b);
+      if (with_v) tma_load_3d(Vs + s * TILE + c * 8192, &vmap, &bar[s], h * D + 64 * c, k0, b);
+    }
+  };
+  auto load_keys = [&](int i) {  // the padding bias and segment of load i's keys
+    if (tid < AK) {
+      const int s = i & 1, k = (i % n) * AK + tid;
+      kbias[s * AK + tid] = (k < L && bias_row) ? bias_row[(size_t)b * L + k] : 0.f;
+      kseg[s * AK + tid] = (k < L && use_seg) ? seg_row[(size_t)b * L + k] : 0.f;
+    }
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bar[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&bar[2], TILE);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+      tma_load_3d(Qs + c * 8192, &qmap, &bar[2], h * D + 64 * c, q0, b);
+    load(0);
+    load(1);  // 2n >= 2
+  }
+  load_keys(0);
+  load_keys(1);
+  const int r0 = 16 * warp + lane / 4;
+  float qseg[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qr = q0 + r0 + 8 * i;
+    qseg[i] = (use_seg && qr < L) ? seg_row[(size_t)b * L + qr] : 0.f;
+  }
+  __syncthreads();
+  mbar_wait(&bar[2], 0);
+
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_run[2] = {0.f, 0.f};
+  float acc[D / 2];
+#pragma unroll
+  for (int r = 0; r < D / 2; ++r) acc[r] = 0.f;
+  for (int i = 0; i < 2 * n; ++i) {
+    const int s = i & 1, k0 = (i % n) * AK;
+    mbar_wait(&bar[s], (i >> 1) & 1);
+    __syncwarp();
+    float sc[32];
+    pin(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16_ss(sc, kmajor_desc(Qs, kk), kmajor_desc(Ks + s * TILE, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(sc);
+    const float* kb = kbias + s * AK;
+    const float* ks = kseg + s * AK;
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const int c = 8 * (r >> 2) + 2 * t + (r & 1);
+      sc[r] = score(sc[r], scale, kb[c], use_seg, qseg[(r >> 1) & 1], ks[c], k0 + c, L);
+    }
+    if (i < n) {  // pass 1: the row max and denominator, online
+#pragma unroll
+      for (int ih = 0; ih < 2; ++ih) {
+        float mx = -CUDART_INF_F;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) mx = fmaxf(mx, fmaxf(sc[4 * c + 2 * ih], sc[4 * c + 2 * ih + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // column 0 of the first tile is a real key, so m_new is finite
+        const float m_new = fmaxf(m_run[ih], mx);
+        float sum = 0.f;
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          sum += expf(sc[4 * c + 2 * ih] - m_new) + expf(sc[4 * c + 2 * ih + 1] - m_new);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l_run[ih] = l_run[ih] * expf(m_run[ih] - m_new) + sum;
+        m_run[ih] = m_new;
+      }
+    } else {  // pass 2: p normalised, dropped out, rounded; o += p . v
+      uint32_t pa[16];
+#pragma unroll
+      for (int r = 0; r < 32; r += 2) {
+        const int ih = (r >> 1) & 1, c = 8 * (r >> 2) + 2 * t, qr = q0 + r0 + 8 * ih;
+        const float p0 = drop.apply(expf(sc[r] - m_run[ih]) / l_run[ih], stream, qr, k0 + c);
+        const float p1 =
+            drop.apply(expf(sc[r + 1] - m_run[ih]) / l_run[ih], stream, qr, k0 + c + 1);
+        const __nv_bfloat162 pair = __floats2bfloat162_rn(p0, p1);
+        pa[r / 2] = *reinterpret_cast<const uint32_t*>(&pair);
+      }
+      float part[D / 2];  // this key tile's p.v, promoted into acc
+      pin(part);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < AK / 16; ++kk) {
+        const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
+        if constexpr (D == 64)
+          wgmma_m64n64k16_rs_tb(part, a, mnmajor_desc(Vs + s * TILE, kk), kk > 0);
+        else
+          wgmma_m64n128k16_rs_tb(part, a, mnmajor_desc(Vs + s * TILE, kk), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(part);
+      pin(pa);
+      promote(acc, part);
+    }
+    __syncthreads();  // every warp is done with buffer s
+    if (i + 2 < 2 * n) {
+      if (tid == 0) load(i + 2);
+      load_keys(i + 2);
+    }
+  }
+
+  __nv_bfloat16* obase = o.head(b, h, L, D);
+#pragma unroll
+  for (int ih = 0; ih < 2; ++ih) {
+    const int qr = q0 + r0 + 8 * ih;
+    if (qr >= L) continue;
+    __nv_bfloat16* dst = obase + (size_t)qr * o.ld;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * c + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * c + 2 * ih], acc[4 * c + 2 * ih + 1]);
+    if (stat_m && t == 0) {
+      const size_t at = ((size_t)b * H + h) * L + qr;
+      stat_m[at] = m_run[ih];
+      stat_l[at] = l_run[ih];
+    }
+  }
+}
+
+// A 3-D map over one of q, k, v: [B][L][cols] with rows r.ld apart, read
+// in boxes of 64 columns x 64 rows of one batch item; rows past L read as
+// zero. False if cuTensorMapEncodeTiled refuses it (r.ld or the base not a
+// multiple of 16 bytes).
+inline bool rows_map(CUtensorMap* map, Rows<const __nv_bfloat16> r, int B, int L, int cols) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)r.ld * 2, (cuuint64_t)L * r.ld * 2};
+  const cuuint32_t box[3] = {64, AK, 1};
+  return r.ld % 8 == 0 && bf16_map(map, r.ptr, 3, dims, strides, box);
 }
 
 template <int D>
@@ -590,16 +807,33 @@ cudaError_t launch_attention_bwd(Rows<const T> q, Rows<const T> k, Rows<const T>
   return cudaGetLastError();
 }
 
+// The forward over (ceil(L/64), H, B) blocks on `stream`: bf16 on the
+// tensor cores, fp32 on the CUDA cores. With stat_m/stat_l (the block's
+// training forward) m and l are saved [B, H, L].
 template <typename T, int D>
 cudaError_t launch_attention_fwd(Rows<const T> q, Rows<const T> k, Rows<const T> v,
                                  const float* bias_row, const float* seg_row, Rows<T> o,
                                  float* stat_m, float* stat_l, int B, int L, int H,
                                  Dropout drop, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * fwd_smem_floats<D>();
-  cudaError_t err = allow_smem(attention_fwd<T, D>, smem);
-  if (err != cudaSuccess) return err;
-  attention_fwd<T, D><<<dim3((L + AQ - 1) / AQ, H, B), ATHREADS, smem, stream>>>(
-      q, k, v, bias_row, seg_row, o, stat_m, stat_l, L, 1.f / sqrtf((float)D), drop);
+  const dim3 grid((L + AQ - 1) / AQ, H, B);
+  const float scale = 1.f / sqrtf((float)D);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    CUtensorMap qm, km, vm;
+    if (!rows_map(&qm, q, B, L, H * D) || !rows_map(&km, k, B, L, H * D) ||
+        !rows_map(&vm, v, B, L, H * D))
+      return cudaErrorInvalidValue;
+    const size_t smem = fwd_sm90_smem<D>();
+    cudaError_t err = allow_smem(attention_fwd_sm90<D>, smem);
+    if (err != cudaSuccess) return err;
+    attention_fwd_sm90<D><<<grid, 128, smem, stream>>>(qm, km, vm, bias_row, seg_row, o, stat_m,
+                                                      stat_l, L, scale, drop);
+  } else {
+    const size_t smem = sizeof(float) * fwd_smem_floats<D>();
+    cudaError_t err = allow_smem(attention_fwd<T, D>, smem);
+    if (err != cudaSuccess) return err;
+    attention_fwd<T, D><<<grid, ATHREADS, smem, stream>>>(q, k, v, bias_row, seg_row, o, stat_m,
+                                                           stat_l, L, scale, drop);
+  }
   return cudaGetLastError();
 }
 

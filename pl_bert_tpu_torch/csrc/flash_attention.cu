@@ -37,9 +37,13 @@
 // 4*L*L*D*B*H = 77 GFLOP against 4 x 75.5 MB of q, k, v read and o written,
 // so the bytes bound it (0.090 ms against 0.078 ms of tensor-core time);
 // the backward is 10*L*L*D*B*H = 193 GFLOP against 7 x 75.5 MB, so the
-// operations bound it. This version computes on the CUDA cores in fp32 and
-// recomputes q.k (twice in the forward, four times in the backward), so it
-// runs far above either bound: right first, tensor cores next.
+// operations bound it. The bf16 forward runs on the tensor cores
+// (attention_fwd_sm90: q.k and p.v on wgmma, K/V tiles by TMA from a 3-D
+// map over the [B, L, H*D] rows, so q, k, v need 16-byte-aligned bases and
+// row distances); with dropout its Philox draws are work of the same size
+// on the integer units. The fp32 forward and the backward compute on the
+// CUDA cores in fp32 and recompute q.k (four times in the backward), so
+// they run far above their bounds: the backward's redesign is next.
 
 #include "attention_tiles.cuh"
 

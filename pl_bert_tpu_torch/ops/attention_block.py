@@ -12,12 +12,15 @@ Replaces the Pallas kernels of ``pl_bert_tpu/ops/attention_block.py``:
   (:586-638): :func:`train_backward`. :class:`AttentionBlockFunction`
   joins the two under autograd.
 
-The kernels live in ``csrc/attention_block.cu`` (the GEMM) and
-``csrc/attention_tiles.cuh`` (the attention kernels, shared with
-``ops/flash_attention.py``); the former's header says what bounds them on
-the card. All projections, forward and backward
+The kernels live in ``csrc/attention_block.cu`` with
+``csrc/gemm_sm90.cuh`` (the GEMMs) and ``csrc/attention_tiles.cuh`` (the
+attention kernels, shared with ``ops/flash_attention.py``); the first's
+header says what bounds them on the card. In bf16 the forward runs on
+the tensor cores (``wgmma`` fed by TMA, for the projections and the
+attention alike); in fp32 (K2) and in the backward (K4) on the CUDA
+cores. All projections, forward and backward
 (``do = dout·Woᵀ``, ``dx = [dq|dk|dv]·[Wq|Wk|Wv]ᵀ``), run in the
-hand-written GEMM there, not in cuBLAS. The weight and bias gradients
+hand-written GEMMs there, not in cuBLAS. The weight and bias gradients
 are plain matmuls and sums outside the kernels, as the TPU left them to
 XLA (:626-637).
 
@@ -32,7 +35,11 @@ Differences from the TPU kernels, all deliberate:
 
 - any sequence length (key tiles are masked at the ragged edge), where
   the TPU kernel needs ``L % 128 == 0``; head_dim 64 or 128, as there;
-- one kernel for bf16 and fp32 (the TPU picked a grid by VMEM size);
+- one design for bf16 and fp32 (the TPU picked a grid by VMEM size),
+  bf16 on the tensor cores and fp32 on the CUDA cores;
+- the bf16 forward reads through TMA, which needs 16-byte-aligned bases
+  and row strides: on a CUDA tensor a width ``E`` that is not a multiple
+  of 8, or a misaligned input or weight, raises;
 - the serving weights arrive packed once per load (``pack_weights``):
   Wq|Wk|Wv concatenated to [E, 3P] in the compute dtype, fp32 biases;
 - the training forward saves the row max and denominator as two fp32
@@ -260,6 +267,17 @@ def _scores(qkv, num_heads: int, bias_row, seg_row, B: int, L: int):
     return q, k, v, s
 
 
+def softmax_stats_plain(qkv, num_heads: int, B: int, L: int, bias_row=None, seg_row=None):
+    """The row max and denominator [B, H, L] that K3 saves, in plain
+    PyTorch from a qkv buffer [B·L, 3P]. Checks hand it the kernels' own
+    qkv, so that they hold the statistics on the q and k the kernel read:
+    the bf16 projection sums on the tensor cores and rounds qkv one bf16
+    ulp away from an fp32 GEMM's in a few elements in 10^4."""
+    _, _, _, s = _scores(qkv, num_heads, bias_row, seg_row, B, L)
+    m = s.amax(dim=-1)
+    return m, torch.exp(s - m[..., None]).sum(dim=-1)
+
+
 def _drop(p, keep, dropout_rate: float, dropout_seed, B: int, H: int, L: int):
     if dropout_seed is None or dropout_rate <= 0.0:
         return p
@@ -448,6 +466,17 @@ def _check_rows(dev, B: int, L: int, bias_row, seg_row) -> None:
             _expect(dev, **{name: (t, (B, L), torch.float32)})
 
 
+def _check_tma(width: int, **tensors) -> None:
+    """The bf16 forward's kernels load through TMA: every base and row
+    stride a multiple of 16 bytes (P = heads·head_dim always is)."""
+    if width % 8:
+        raise ValueError(f"attention_block bf16 kernels need a width that is a multiple of 8; "
+                         f"got {width}")
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"attention_block bf16 kernels need {name} 16-byte aligned")
+
+
 def _launch_fwd(hidden, wqkv, bqkv, wo, bo, num_heads, bias_row, seg_row, rate, seed,
                 save: bool):
     B, L, E = hidden.shape
@@ -459,6 +488,8 @@ def _launch_fwd(hidden, wqkv, bqkv, wo, bo, num_heads, bias_row, seg_row, rate, 
             wo=(wo, (P, E), cdt), bo=(bo, (E,), torch.float32))
     _check_rows(dev, B, L, bias_row, seg_row)
     x = hidden.contiguous()
+    if cdt == torch.bfloat16:
+        _check_tma(E, x=x, wqkv=wqkv, wo=wo)
     qkv = torch.empty((B * L, 3 * P), dtype=cdt, device=dev)
     ctx = torch.empty((B * L, P), dtype=cdt, device=dev)
     out = torch.empty((B, L, E), dtype=cdt, device=dev)

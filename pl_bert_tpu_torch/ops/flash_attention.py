@@ -32,7 +32,10 @@ Differences from the TPU kernels, all deliberate:
   fused projection, so the fold to [B·H, L, D] (:225-232) is never made;
 - no bias or no segments means no row is passed (the TPU passes zeros);
 - the kernels write the compute dtype: on a CUDA tensor an ``out_dtype``
-  other than ``q.dtype`` raises.
+  other than ``q.dtype`` raises;
+- the bf16 forward runs on the tensor cores and reads q, k, v through
+  TMA: a base or a row distance that is not a multiple of 16 bytes
+  raises.
 
 Each kernel has a plain PyTorch version with the TPU kernel's rounding
 points beside it; a wrapper takes the plain version for CPU tensors only.
@@ -126,6 +129,11 @@ def flash_attention_fwd(q, k, v, bias_row=None, seg_row=None, dropout_rate: floa
             f"flash_attention kernel writes {q.dtype}; out_dtype {out_dtype} is not built"
         )
     q, k, v = (_rows_view(t) for t in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or t.stride(1) % 8:
+                raise ValueError(f"flash_attention bf16 kernel reads {name} through TMA: base "
+                                 "and row distance must be multiples of 16 bytes")
     out = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
     fn = _entry("plbt_flash_attention_fwd", 6, 9)
     with torch.cuda.device(q.device):

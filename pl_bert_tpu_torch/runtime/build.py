@@ -10,7 +10,9 @@ Libraries land in ``pl_bert_tpu_torch/_build/`` (git-ignored), named by
 a hash of the sources and flags: an edit to a ``.cu``/``.cuh`` file or
 a flag change builds a fresh library, and a stale one is never loaded.
 The first call of a kernel wrapper builds its library; a failed build
-raises :class:`BuildError` with the compiler's output.
+raises :class:`BuildError` with the compiler's output. ``ptxas`` reports
+each kernel's registers, shared memory and spills into a ``.log`` beside
+the library (:func:`ptxas_report`).
 
 Triton kernels compile on their first launch; their cache is pointed at
 the same directory (``_build/triton``) unless ``TRITON_CACHE_DIR`` is set.
@@ -33,7 +35,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -95,7 +97,7 @@ def library_path(name: str, extra_flags: tuple[str, ...] = ()) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str, extra_flags: tuple[str, ...] = (), verbose: bool = False) -> Path:
+def build(name: str, extra_flags: tuple[str, ...] = ()) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of these exact
     sources and flags exists. Returns the library's path."""
     out = library_path(name, extra_flags)
@@ -109,17 +111,21 @@ def build(name: str, extra_flags: tuple[str, ...] = (), verbose: bool = False) -
     cmd = [nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(_sources(name)[0])]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
-        if verbose or proc.returncode:
-            text = (proc.stdout + proc.stderr).strip()
-            if proc.returncode:
-                raise BuildError(f"{' '.join(cmd)} failed:\n{text}")
-            if text:
-                print(text, flush=True)
+        text = (proc.stdout + proc.stderr).strip()
+        if proc.returncode:
+            raise BuildError(f"{' '.join(cmd)} failed:\n{text}")
+        out.with_suffix(".log").write_text(text + "\n")
         os.replace(tmp, out)
     finally:
         if tmp.exists():
             tmp.unlink()
     return out
+
+
+def ptxas_report(name: str) -> str:
+    """What ``ptxas -v`` said of each kernel of ``csrc/<name>.cu``'s
+    current library (built if it is not)."""
+    return build(name).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -154,14 +160,14 @@ def all_sources() -> list[str]:
     return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
 
-def build_all(extra_flags: tuple[str, ...] = (), verbose: bool = False) -> dict[str, Path]:
+def build_all(extra_flags: tuple[str, ...] = ()) -> dict[str, Path]:
     """Build every ``csrc/*.cu``, one ``nvcc`` a source, all started
     together; {name: library path}. The first failure raises."""
     from concurrent.futures import ThreadPoolExecutor
 
     names = all_sources()
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        paths = list(pool.map(lambda n: build(n, extra_flags, verbose), names))
+        paths = list(pool.map(lambda n: build(n, extra_flags), names))
     return dict(zip(names, paths))
 
 
@@ -172,9 +178,10 @@ def main(argv=None) -> None:
         help="print each kernel's registers, shared memory and spills",
     )
     args = parser.parse_args(argv)
-    extra = ("-Xptxas", "-v") if args.ptxas_verbose else ()
-    for path in build_all(extra, verbose=args.ptxas_verbose).values():
+    for name, path in build_all().items():
         print(f"built {path}", flush=True)
+        if args.ptxas_verbose:
+            print(ptxas_report(name), flush=True)
 
 
 if __name__ == "__main__":

@@ -34,7 +34,7 @@ GROUPS = (
     # the block path's K3/K4 and the flash path's K7/K8 run the same
     # attention kernels (csrc/attention_tiles.cuh); one path a run
     ("attention_fwd", "K3 / K7 attention forward"),
-    ("gemm_bias<__nv_bfloat16, false>", "K3 projections"),
+    ("gemm_bias_sm90", "K3 projections (wgmma)"),
     ("attention_bwd", "K4 / K8 attention backward"),
     ("gemm_bias<__nv_bfloat16, true>", "K4 projections"),
     ("_fwd_kernel", "K5 LN forward (Triton)"),

@@ -154,3 +154,34 @@ def test_bf16_rounding_points():
     assert out.dtype == torch.float32 and packed16[0].dtype == torch.bfloat16
     rel = (out - ref).norm() / ref.norm()
     assert rel < 2e-2
+
+
+@pytest.mark.parametrize("width,offset", [(132, 0), (256, 1)])
+def test_bf16_kernels_refuse_what_tma_cannot_read(width, offset):
+    """The bf16 forward loads through TMA, whose bases and row strides
+    are multiples of 16 bytes: a width that is not a multiple of 8, or an
+    input that starts off a 16-byte boundary, raises (on a CUDA tensor;
+    the check itself needs no card)."""
+    x = torch.zeros(width + offset, dtype=torch.bfloat16)[offset:]
+    with pytest.raises(ValueError, match="multiple of 8|16-byte aligned"):
+        ab._check_tma(width, x=x)
+    ab._check_tma(256, x=torch.zeros(256, dtype=torch.bfloat16))
+
+
+def test_softmax_stats_plain_are_the_training_forwards():
+    """The statistics the checks hold K3's saved m and l against, from
+    a qkv buffer, are the ones the plain training forward saves."""
+    rng = np.random.default_rng(3)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    x = t(rng.standard_normal((B, L, E)) * 0.5)
+    wqkv, bqkv = t(rng.standard_normal((E, 3 * E)) * 0.05), t(rng.standard_normal(3 * E) * 0.02)
+    wo, bo = t(rng.standard_normal((E, E)) * 0.05), t(rng.standard_normal(E) * 0.02)
+    mask = np.ones((B, L), np.int32)
+    mask[1, L // 3:] = 0
+    seg = torch.from_numpy((np.arange(L)[None] >= L // 2).repeat(B, 0).astype(np.int32))
+    bias_row, seg_row = ab.rows(attention_bias_from_mask(torch.from_numpy(mask)), seg, B, L)
+    _, (qkv, _, m, l) = ab.train_forward_plain(x, wqkv, bqkv, wo, bo, H, bias_row, seg_row)
+    got_m, got_l = ab.softmax_stats_plain(qkv, H, B, L, bias_row, seg_row)
+    assert got_m.shape == got_l.shape == (B, H, L)
+    torch.testing.assert_close(got_m, m, rtol=0, atol=0)
+    torch.testing.assert_close(got_l, l, rtol=1e-6, atol=0)

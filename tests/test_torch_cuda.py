@@ -39,9 +39,12 @@ def _close(out, ref, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("L,heads,segments", [(128, 4, False), (100, 4, True), (200, 2, False)])
+@pytest.mark.parametrize("L,heads,segments", [(128, 4, False), (100, 4, True), (200, 2, False),
+                                               (100, 2, True)])
 def test_attention_block_kernel_matches_plain(dev, dtype, L, heads, segments):
-    B, E = 3, 256  # head_dim 64, or 128 with 2 heads
+    # head_dim 64, or 128 with 2 heads; M = B*L = 300 and 600 are not
+    # multiples of the bf16 GEMM's 128-row tile; row 2 is fully masked
+    B, E = 3, 256
     rng = np.random.default_rng(L + heads)
     t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
     x = t(rng.standard_normal((B, L, E)) * 0.5).to(dtype)
@@ -69,6 +72,20 @@ def test_attention_block_refuses_what_is_not_built_on_cuda(dev, kwargs):
     w = [torch.zeros(s, device=dev) for s in [(128, 128), (128,)] * 4]
     with pytest.raises(NotImplementedError):
         ab.attention_block(x, *w, 2, **kwargs)
+
+
+def test_attention_block_bf16_refuses_what_tma_cannot_read(dev):
+    """E = 132 is not a multiple of 8: the tensor-core forward's TMA
+    cannot read its rows, and the wrapper raises rather than route
+    elsewhere; fp32 (the CUDA cores) takes it."""
+    B, L, E, heads = 1, 64, 132, 2
+    x = torch.zeros(B, L, E, device=dev)
+    w = [torch.zeros(s, device=dev) for s in [(E, 128), (128,)] * 3 + [((128, E)), (E,)]]
+    packed32 = ab.pack_weights(*w, torch.float32)
+    assert ab.attention_block_packed(x, *packed32, heads).shape == (B, L, E)
+    packed16 = ab.pack_weights(*w, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ab.attention_block_packed(x.bfloat16(), *packed16, heads)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -120,7 +137,9 @@ def _block_case(dev, dtype, B=3, L=100, E=256, heads=4):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_attention_training_kernels_match_plain(dev, dtype, rate):
     """K3 and K4 against their plain versions on the same inputs, the
-    plain ones dropping with the mask the kernels' Philox code writes."""
+    plain ones dropping with the mask the kernels' Philox code writes;
+    K3's saved row max and denominator against the plain statistics of
+    its own qkv (the bf16 projection rounds on the tensor cores)."""
     x, wqkv, bqkv, wo, bo, heads, bias_row, seg_row = _block_case(dev, dtype)
     B, L, E = x.shape
     seed = 11 if rate else None
@@ -136,7 +155,9 @@ def test_attention_training_kernels_match_plain(dev, dtype, rate):
                                          rate, seed, keep=keep)
     torch.cuda.synchronize()
     assert (ab.LAUNCHES_TRAIN.count, ab.LAUNCHES_BWD.count) == (counts[0] + 1, counts[1] + 1)
-    for a, r in [(out, ref), *zip(saved, ref_saved), (dx, rdx), (dqkv, rdqkv)]:
+    stats = ab.softmax_stats_plain(saved[0], heads, B, L, bias_row, seg_row)
+    for a, r in [(out, ref), *zip(saved[:2], ref_saved[:2]), *zip(saved[2:], stats),
+                 (dx, rdx), (dqkv, rdqkv)]:
         _close(a, r, dtype if a.dtype == dtype else torch.float32)
 
 

@@ -1,0 +1,76 @@
+"""The cost model of ``chip_smoke.py``, which sets every kernel's
+``bound_ms``: the attention block's FLOPs, split into its projection
+GEMMs and its attention pass, and bytes, pinned against counts worked
+out by hand at the flagship width (E = P = 768, 12 heads of 64, L 512).
+``chip_smoke`` imports torch only inside its functions, so it loads here."""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+_SPEC = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(smoke)
+
+E = P = 768
+L = 512
+
+
+@pytest.mark.parametrize("B,gemm,attention", [
+    # M = B·L rows. GEMMs: x·[Wq|Wk|Wv] is 2·M·E·3P, ctx·Wo 2·M·P·E.
+    # Attention: q·k and p·v, 2·L·L·D each, for B·H (batch, head) pairs.
+    (8, 2 * 4096 * 768 * 2304 + 2 * 4096 * 768 * 768, 2 * 2 * 512 * 512 * 64 * 8 * 12),
+    (96, 2 * 49152 * 768 * 2304 + 2 * 49152 * 768 * 768, 2 * 2 * 512 * 512 * 64 * 96 * 12),
+])
+@pytest.mark.parametrize("kind", ["light", "train"])
+def test_block_cost_splits_the_forward(B, gemm, attention, kind):
+    cost = smoke.block_cost(B, L, E, P, 2, kind)
+    assert cost["gemm"] == gemm
+    assert cost["attention"] == attention
+    total = {8: 25.8e9, 96: 309e9}[B]  # PERF.md's K1 and K3 rows
+    assert cost["gemm"] + cost["attention"] == pytest.approx(total, rel=2e-3)
+
+
+@pytest.mark.parametrize("kind,nbytes", [
+    # x read and the output written (B·L·E bf16 each), the four weights
+    ("light", 2 * 8 * 512 * 768 * 2 + 4 * 768 * 768 * 2),
+    # ... and K3's saved qkv and ctx (4·B·L·P bf16) and m, l (2·B·H·L fp32)
+    ("train", 2 * 8 * 512 * 768 * 2 + 4 * 768 * 768 * 2 + 4 * 8 * 512 * 768 * 2
+     + 2 * 8 * 12 * 512 * 4),
+])
+def test_block_cost_bytes(kind, nbytes):
+    cost = smoke.block_cost(8, L, E, P, 2, kind)
+    assert cost["bytes"] == nbytes
+    # the parts: the projections move x, ctx, qkv, the output and the
+    # weights; the attention reads qkv and writes ctx (and m, l for K3)
+    assert cost["gemm_bytes"] == (2 * 4096 * 768 + 4 * 4096 * 768) * 2 + 4 * 768 * 768 * 2
+    assert cost["attention_bytes"] == 4 * 4096 * 768 * 2 + (
+        2 * 8 * 12 * 512 * 4 if kind == "train" else 0)
+
+
+def test_backward_cost_is_pr3s_425_gflop():
+    cost = smoke.block_cost(96, L, E, P, 2, "backward")
+    assert cost["gemm"] == 8 * 49152 * 768 * 768
+    assert cost["attention"] == 10 * 49152 * 512 * 768
+    assert cost["gemm"] + cost["attention"] == pytest.approx(425.2e9, rel=1e-3)
+
+
+@pytest.mark.parametrize("flops,nbytes,peak,want", [
+    # K1 at [8, 512, 768]: 25.8 GFLOP over 989 TFLOP/s beats 17.3 MB over 3.35 TB/s
+    (25_769_803_776, 17_301_504, smoke.PEAK_BF16_FLOPS, (0.026056, "operations")),
+    # K2, the same work in fp32 at 67 TFLOP/s
+    (25_769_803_776, 34_603_008, smoke.PEAK_FP32_FLOPS, (0.384624, "operations")),
+    # K1's attention pass alone: 6.4 GFLOP against 25.2 MB of qkv and ctx
+    (6_442_450_944, 25_165_824, smoke.PEAK_BF16_FLOPS, (0.0075122, "bytes")),
+])
+def test_bound_ms_takes_the_larger_of_operations_and_bytes(flops, nbytes, peak, want):
+    ms, by = smoke.bound_ms(flops, nbytes, peak)
+    assert by == want[1]
+    assert ms == pytest.approx(want[0], rel=1e-4)
+
+
+def test_block_bound_sums_the_parts():
+    cost = smoke.block_cost(8, L, E, P, 2)
+    assert smoke.block_bound(cost) == smoke.bound_ms(25_769_803_776, cost["bytes"])
