@@ -10,12 +10,13 @@ with random weights made from a fixed seed, in order:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels from the sources in this checkout, and shows that
-   the bf16 attention forward runs on the tensor cores: ``cuobjdump
-   -sass`` counts the HGMMA (wgmma) and HMMA (mma.sync) instructions of
-   the projection GEMM (``gemm_bias_sm90``) and the attention pass
-   (``attention_fwd_sm90``) in both libraries, and raises if the GEMM
-   has no HGMMA or the attention pass neither; it prints what ``ptxas
-   -v`` said of their registers, shared memory and spills;
+   the bf16 attention kernels, forward and backward, run on the tensor
+   cores: ``cuobjdump -sass`` counts the HGMMA (wgmma) and HMMA
+   (mma.sync) instructions of the projection GEMM (``gemm_bias_sm90``),
+   the attention pass (``attention_fwd_sm90``) and the backward's dq and
+   dk/dv kernels (``attention_bwd_dq_sm90``, ``attention_bwd_dkdv_sm90``)
+   in both libraries, and raises if any has no HGMMA; it prints what
+   ``ptxas -v`` said of their registers, shared memory and spills;
 3. holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes, in bf16 and fp32 (TF32 off); the block also
    at head_dim 128 (6 heads, L 200);
@@ -33,7 +34,9 @@ with random weights made from a fixed seed, in order:
 9. holds the attention block's training forward (K3) against its plain
    version at [8, 512, 768] in bf16 and fp32 (output, qkv, context,
    softmax statistics), and checks the light forward (K1) returns K3's
-   output bitwise, with attention dropout 0 and 0.1;
+   output bitwise, with attention dropout 0 and 0.1; in bf16, the flash
+   backward's (K8's) recomputed row max and denominator on views of
+   K3's qkv must equal K3's saved ones bit for bit;
 10. holds its backward (K4) against the plain backward on the same saved
    tensors (dx, dW, db), dropout 0 and 0.1 — at 0.1 the plain version
    gets the mask the kernels' Philox code writes, which must equal the
@@ -52,17 +55,20 @@ with random weights made from a fixed seed, in order:
    their plain versions and the library calls (K3 also at dropout 0, and
    its two parts against their bounds), and holds each against
    its plain version there (K4 on K3's saved tensors, dropout 0.1 with
-   the kernels' mask), as phases 9-11 do at B=8. The B=8 comparison also
+   the kernels' mask), as phases 9-11 do at B=8, K8's statistics bitwise
+   K3's there too, and splits K4 into its projections and its dq and
+   dk/dv kernels (``torch.profiler``). The B=8 comparison also
    runs the per-head flash path (``attention_impl: pallas``) against the
    plain path;
 14. holds the per-head flash attention kernels (K7 forward, K8 backward)
    against their plain versions at [8, 512, 12, 64] in bf16 and fp32 —
    padded rows, packed segments, dropout 0 and 0.1 (the kernels' mask,
    bit for bit the plain Philox), views of one fused projection — at
-   L = 200, and at the training shape [96, 512, 12, 64]; holds the copy
-   anchor (K9) bitwise against its plain version; times K7, K8 and K9
-   against their plain versions and one library call each (K7 also at
-   dropout 0);
+   L = 200, at head_dim 128 ([8, 200, 6, 128]), and at the training shape
+   [96, 512, 12, 64]; holds the copy anchor (K9) bitwise against its
+   plain version; times K7, K8 and K9 against their plain versions and
+   one library call each (K7 also at dropout 0), and splits K8 into its
+   dq and dk/dv kernels;
 15. runs the 12-layer encoder on the flash path against the plain path
    and the block path (in phase 4), and serves 8 HTTP requests from a
    server started with an ``attention_impl: pallas`` config: 12 K7 and
@@ -345,14 +351,16 @@ def encode_b64(conn, text: str):
 
 
 def phase_tensor_cores(build) -> None:
-    """2. the bf16 forward's kernels run on the tensor cores: HGMMA (wgmma)
-    or HMMA (mma.sync) instructions in their SASS, and what ptxas said of
-    their registers, shared memory and spills."""
+    """2. the bf16 kernels that run on the tensor cores (the block's and
+    the flash path's forward, the block backward's dx projection, the flash
+    backward) have HGMMA (wgmma) instructions in their SASS; and what
+    ptxas said of their registers, shared memory and spills."""
     import re
 
-    def label(mangled: str) -> str:  # gemm_bias_sm90, attention_fwd_sm90<64>, ...
-        found = re.search(r"(gemm_bias_sm90|attention_fwd_sm90)(?:ILi(\d+)E)?", mangled)
-        return found.group(1) + (f"<{found.group(2)}>" if found.group(2) else "")
+    def label(mangled: str) -> str:  # gemm_bias_sm90<1>, attention_bwd_dq_sm90<64, 1>, ...
+        found = re.search(r"(gemm_bias_sm90|attention_\w+?_sm90)((?:I?L[ib]\d+E)*)", mangled)
+        args = re.findall(r"L[ib](\d+)E", found.group(2))
+        return found.group(1) + (f"<{', '.join(args)}>" if args else "")
 
     cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     for lib in ("attention_block", "flash_attention"):
@@ -368,17 +376,15 @@ def phase_tensor_cores(build) -> None:
                 counts[func]["HGMMA"] += 1
             elif func and "HMMA" in line:
                 counts[func]["HMMA"] += 1
-        kernels = {"gemm_bias_sm90": "HGMMA", "attention_fwd_sm90": "any"}
-        if lib == "flash_attention":
-            del kernels["gemm_bias_sm90"]
-        for key, need in kernels.items():
+        # the bf16 forward of both paths, K4's dx projection and K8 run wgmma
+        kernels = (["attention_fwd_sm90", "gemm_bias_sm90"] if lib == "attention_block" else
+                   ["attention_fwd_sm90", "attention_bwd_dq_sm90", "attention_bwd_dkdv_sm90"])
+        for key in kernels:
             names = [f for f in counts if key in f]
             for f in names:
                 log(f"  {lib}: {label(f)}: {counts[f]['HGMMA']} HGMMA, {counts[f]['HMMA']} HMMA")
-            short = [f for f in names if not (counts[f]["HGMMA"] if need == "HGMMA"
-                                             else sum(counts[f].values()))]
-            if not names or short:
-                raise AssertionError(f"{lib}: {key} has no tensor-core instructions")
+            if not names or any(not counts[f]["HGMMA"] for f in names):
+                raise AssertionError(f"{lib}: {key} has no wgmma (HGMMA) instructions")
         func = None
         for line in build.ptxas_report(lib).splitlines():
             found = re.search(r"(?:entry function|Function properties for) '?(\w+)", line)
@@ -730,13 +736,17 @@ def block_cost(B, L, E, P, itemsize, kind="light") -> dict:
     statistics read, dqkv and dx written). ``gemm_bytes`` and
     ``attention_bytes``: what each part moves on its own (the projections
     read x, ctx and the weights and write qkv and the output; the
-    attention reads qkv and writes ctx, and the statistics for K3)."""
+    attention reads qkv and writes ctx, and the statistics for K3; K4's
+    projections read dout, dqkv and the weights and write do and dx, its
+    attention reads qkv, do and the statistics and writes dqkv)."""
     M, H = B * L, P // 64
     weights = 4 * E * P * itemsize
     stats = 2 * B * H * L * 4
     if kind == "backward":
         return {"gemm": 8 * M * E * P, "attention": 10 * M * L * P,
-                "bytes": 2 * M * (E + 3 * P) * itemsize + weights + stats}
+                "bytes": 2 * M * (E + 3 * P) * itemsize + weights + stats,
+                "gemm_bytes": (2 * M * E + 4 * M * P) * itemsize + weights,
+                "attention_bytes": 7 * M * P * itemsize + stats}
     nbytes = 2 * M * E * itemsize + weights
     saved = stats if kind == "train" else 0
     if kind == "train":
@@ -751,13 +761,22 @@ def block_bound(cost: dict, flops_peak: float = PEAK_BF16_FLOPS):
     return bound_ms(cost["gemm"] + cost["attention"], cost["bytes"], flops_peak)
 
 
-def part_times(torch, fn, iters: int = 5) -> dict:
+# the parts of a bf16 block or flash call: {part: (kernel name, launches a call)}
+FORWARD_PARTS = {"gemm": ("gemm_bias_sm90", 2), "attention": ("attention_fwd_sm90", 1)}
+# K4: do = dout·Woᵀ and the attention on the CUDA cores, dx on wgmma
+BACKWARD_PARTS = {"do": ("gemm_bias<", 1), "dx": ("gemm_bias_sm90", 1),
+                  "dq": ("attention_bwd_dq", 1), "dkdv": ("attention_bwd_dkdv", 1)}
+FLASH_BACKWARD_PARTS = {"dq": ("attention_bwd_dq_sm90", 1),
+                        "dkdv": ("attention_bwd_dkdv_sm90", 1)}
+
+
+def part_times(torch, fn, iters: int = 5, keys: dict = FORWARD_PARTS) -> dict:
     """Device ms a call of ``fn`` by part, from ``torch.profiler`` over
-    ``iters`` calls: the bf16 block's projection GEMMs
-    (``gemm_bias_sm90``, two launches a call) and its attention pass
-    (``attention_fwd_sm90``, one). The trace can drop a kernel record
-    (seen on the card: 9 of 10 GEMMs), so each part is its mean over the
-    records it has times its launches a call."""
+    ``iters`` calls: ``keys`` names each part's kernel and its launches a
+    call (the forward's projection GEMMs and attention pass by default;
+    the backward's GEMMs, dq and dk/dv kernels). The trace can drop a
+    kernel record (seen on the card: 9 of 10 GEMMs), so each part is its
+    mean over the records it has times its launches a call."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -767,7 +786,6 @@ def part_times(torch, fn, iters: int = 5) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    keys = {"gemm": ("gemm_bias_sm90", 2), "attention": ("attention_fwd_sm90", 1)}
     records = {part: [] for part in keys}
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -780,11 +798,40 @@ def part_times(torch, fn, iters: int = 5) -> dict:
 
 
 def log_parts(label: str, parts: dict, cost: dict) -> None:
-    """Print each part's device time beside its own bound."""
-    for part, ms in parts.items():
+    """Print each part's device time; then the projections (gemm, or do
+    and dx) and the attention (attention, or dq and dk/dv) each against
+    its own bound."""
+    if set(parts) - {"gemm", "attention"}:
+        log(f"  {label}: " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in parts.items()))
+    groups = {"gemm": ("gemm", "do", "dx"), "attention": ("attention", "dq", "dkdv")}
+    for part, keys in groups.items():
+        ms = sum(parts.get(k, 0.0) for k in keys)
         bound, by = bound_ms(cost[part], cost[f"{part}_bytes"])
         log(f"  {label} {part}: {ms:.4f} ms a call, bound {bound:.4f} ms ({by}; "
             f"{cost[part] / 1e9:.1f} GFLOP), {bound / ms if ms else 0:.1%} of it")
+
+
+def hold_flash_stats(torch, saved, heads: int, bias_row, label: str) -> None:
+    """K8's first pass on views of K3's qkv recomputes the row max and
+    denominator with the forward's own functions: they must equal K3's
+    saved ones bit for bit (dO is not read by that pass)."""
+    from pl_bert_tpu_torch.ops import flash_attention as fa
+
+    qkv, _, m, l = saved
+    B, _, L = m.shape
+    P = qkv.shape[1] // 3
+    q, k, v = (t.reshape(B, L, heads, P // heads)
+               for t in qkv.reshape(B, L, 3 * P).split(P, dim=-1))
+    *_, m8, l8 = fa._launch_bwd(torch.zeros_like(q), q, k, v, bias_row, None, 0.0, None)
+    torch.cuda.synchronize()
+    same = torch.equal(m8, m) and torch.equal(l8, l)
+    log(f"  K8's recomputed row max and denominator equal K3's saved ones bit for bit "
+        f"({label}): {same}")
+    if not same:
+        raise AssertionError(
+            f"K8's statistics differ from K3's ({label}): row max by "
+            f"{float((m8 - m).abs().max()):.3e}, denominator by "
+            f"{float((l8 - l).abs().max()):.3e}")
 
 
 def phase_train_kernels(torch, cfg, results: dict) -> None:
@@ -844,6 +891,8 @@ def phase_train_kernels(torch, cfg, results: dict) -> None:
                                ("denominator", saved[3], stats[1])]:
                 gate(f"K3 {name} {tag}", errors(a, r), TOL["float32"])
             log(f"  K1 output == K3 output bitwise ({tag})")
+            if dtype == torch.bfloat16:
+                hold_flash_stats(torch, saved, H, bias_row, f"[{B}, {L}, {E}] {tag}")
 
             dx, dqkv = ab.train_backward(dout, x, wqkv, wo, saved, H, bias_row, None, rate, seed)
             rdx, rdqkv = ab.train_backward_plain(dout, x, wqkv, wo, saved, H, bias_row, None,
@@ -1021,13 +1070,18 @@ def phase_train(torch, results: dict) -> tuple[dict, dict, dict]:
         log_parts(f"attention_block_train (K3) dropout {r}", part_times(torch, fn, 3),
                   block_cost(B, L, E, E, 2, "train"))
     _, saved = ab.train_forward(x, wqkv, bqkv, wo, bo, H, bias_row, None, rate, seed)
+
+    def k4():
+        return ab.train_backward(dout, x, wqkv, wo, saved, H, bias_row, None, rate, seed)
+
     times["attention_block_bwd"] = a_b(
         torch,
         lambda: ab.train_backward_plain(dout, x, wqkv, wo, saved, H, bias_row, None, rate, seed,
                                         keep=keep),
-        lambda: ab.train_backward(dout, x, wqkv, wo, saved, H, bias_row, None, rate, seed),
-        iters=3,
+        k4, iters=3,
     )
+    log_parts(f"attention_block_bwd (K4) dropout {rate}", part_times(torch, k4, 3, BACKWARD_PARTS),
+              block_cost(B, L, E, E, 2, "backward"))
     # the same calls held against each other at this shape, as phases 9-10
     # do at B=8: K3 (out, qkv, ctx, statistics), then K4 on K3's saved
     # tensors (dx, dqkv, and the fp32 weight and bias gradients)
@@ -1042,6 +1096,7 @@ def phase_train(torch, results: dict) -> tuple[dict, dict, dict]:
     for name, a, r in [("row max", saved[2], stats[0]), ("denominator", saved[3], stats[1])]:
         hold(results, "attention_block_train", f"K3 {name} {tag}", a, r, TOL["float32"])
     del stats
+    hold_flash_stats(torch, saved, H, bias_row, tag)
     del out, ref
     dx, dqkv = ab.train_backward(dout, x, wqkv, wo, saved, H, bias_row, None, rate, seed)
     rdx, rdqkv = ab.train_backward_plain(dout, x, wqkv, wo, saved, H, bias_row, None, rate,
@@ -1128,13 +1183,15 @@ def phase_flash_kernels(torch, cfg, results: dict) -> dict:
     H, D, E, dev = cfg.num_attention_heads, cfg.head_dim, cfg.hidden_size, DEV
     f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
 
-    def case(B, L, lengths, segments, dtype):
-        """q, k, v as views of one fused [B, L, 3E] projection (the model's
-        layout), dout, and the bias and segment rows: rows padded to
-        ``lengths``, and with ``segments`` two or three packed samples a row."""
-        qkv = f32(rng.standard_normal((B, L, 3 * E)) * 0.7).to(dtype)
-        q, k, v = (t.reshape(B, L, H, D) for t in qkv.split(E, dim=-1))
-        dout = f32(rng.standard_normal((B, L, H, D))).to(dtype)
+    def case(B, L, lengths, segments, dtype, heads=H, hd=D):
+        """q, k, v as views of one fused [B, L, 3·heads·hd] projection (the
+        model's layout), dout, and the bias and segment rows: rows padded
+        to ``lengths``, and with ``segments`` two or three packed samples a
+        row."""
+        width = heads * hd
+        qkv = f32(rng.standard_normal((B, L, 3 * width)) * 0.7).to(dtype)
+        q, k, v = (t.reshape(B, L, heads, hd) for t in qkv.split(width, dim=-1))
+        dout = f32(rng.standard_normal((B, L, heads, hd))).to(dtype)
         valid = np.arange(L)[None, :] < np.asarray(lengths)[:, None]
         seg = None
         if segments:
@@ -1144,18 +1201,18 @@ def phase_flash_kernels(torch, cfg, results: dict) -> dict:
         bias_row, seg_row = ab.rows(attention_bias_from_mask(f32(valid)), seg, B, L)
         return q, k, v, dout, bias_row, seg_row
 
-    def check(tag, B, L, lengths, segments, dtype, rate):
+    def check(tag, B, L, lengths, segments, dtype, rate, heads=H, hd=D):
         dname = str(dtype).removeprefix("torch.")
-        q, k, v, dout, bias_row, seg_row = case(B, L, lengths, segments, dtype)
+        q, k, v, dout, bias_row, seg_row = case(B, L, lengths, segments, dtype, heads, hd)
         seed = 977 if rate else None
-        keep = ab.dropout_mask(seed, rate, B, H, L, dev) if rate else None
+        keep = ab.dropout_mask(seed, rate, B, heads, L, dev) if rate else None
         out = fa.flash_attention_fwd(q, k, v, bias_row, seg_row, rate, seed)
         grads = fa.flash_attention_bwd(dout, q, k, v, bias_row, seg_row, rate, seed)
         ref = fa.flash_attention_plain(q, k, v, bias_row, seg_row, rate, seed, keep=keep)
         refs = fa.flash_attention_bwd_plain(dout, q, k, v, bias_row, seg_row, rate, seed,
                                             keep=keep)
         torch.cuda.synchronize()
-        if out.shape != (B, L, H, D) or out.dtype != dtype:
+        if out.shape != (B, L, heads, hd) or out.dtype != dtype:
             raise AssertionError(f"K7 {tag}: {out.shape} {out.dtype}")
         label = f"{tag} {dname} dropout {rate}"
         hold(results, "flash_attention", f"K7 out {label}", out, ref, TOL[dname])
@@ -1174,6 +1231,9 @@ def phase_flash_kernels(torch, cfg, results: dict) -> dict:
             check("[8, 512, 12, 64] packed", 8, 512, padded, True, dtype, rate)
         check("[8, 200, 12, 64] packed", 8, 200, [200, 199, 150, 101, 100, 64, 3, 0], True,
               dtype, 0.1)
+        # head_dim 128, which the flash kernels take too
+        check("[8, 200, 6, 128] packed", 8, 200, [200, 199, 150, 101, 100, 64, 5, 0], True,
+              dtype, 0.1, heads=E // 128, hd=128)
     Bt = 96
     check(f"[{Bt}, 512, 12, 64] packed", Bt, 512, rng.integers(300, 513, Bt), True,
           torch.bfloat16, 0.1)
@@ -1208,6 +1268,12 @@ def phase_flash_kernels(torch, cfg, results: dict) -> dict:
         fwd0 = timer(torch, lambda: fa.flash_attention_fwd(q, k, v, bias_row, None), iters)
         log(f"  flash_attention [{B}, 512, 12, 64]: kernel {fwd0:.4f} ms at dropout 0, "
             f"{fwd[0]:.4f} ms at dropout {rate}")
+        parts = part_times(torch, lambda: fa.flash_attention_bwd(dout, q, k, v, bias_row, None,
+                                                                 rate, seed),
+                           3, FLASH_BACKWARD_PARTS)
+        log(f"  flash_attention_bwd [{B}, 512, 12, 64] dropout {rate}: dq kernel "
+            f"{parts['dq']:.4f} ms (three passes over the keys), dk/dv kernel "
+            f"{parts['dkdv']:.4f} ms")
         del keep
         # library yardstick, timed only: SDPA with the mask, forward, then
         # its backward; it rounds at other points than the kernels

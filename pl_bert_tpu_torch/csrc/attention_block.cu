@@ -29,7 +29,7 @@
 // 159-168). The training forward saves qkv, ctx and (m, l): the TPU's
 // q2/k2/v2/o2 and md [B,G,L,8].
 //
-// Backward, four launches, on the CUDA cores in both types:
+// Backward, four launches:
 //   1. gemm (B^T):       do[M, P]   = dout[M, E] . Wo[P, E]^T          (:331-334)
 //   2. attention_bwd_dq: per query tile, pass 1 delta = sum_j dpd.pd, pass 2
 //                        dq = ds . k, with p = exp(s - m)/l recomputed from
@@ -40,6 +40,16 @@
 //                        program owns each key tile, so no float atomics
 //                        and the sums are deterministic
 //   4. gemm (B^T):       dx[M, E]   = [dq|dk|dv][M, 3P] . [Wq|Wk|Wv]^T  (:389-401)
+// Launches 1-3 run on the CUDA cores in both types (gemm_bias, the SIMT
+// attention kernels); launch 4 runs on the tensor cores in bf16
+// (gemm_bias_sm90 reading Wqkv's transpose K-major). Moving 1-3 to the
+// tensor cores (the flash backward's wgmma kernels, K8) missed the bf16
+// gates: the plain backward forms s, do and the 512-deep sums in cuBLAS
+// fp32, which FMA chains reproduce bit for bit and tensor-core sums do
+// not; their one-ulp flips in do and dqkv fan out through the 512-deep and
+// 2304-deep sums into dx, where one bf16 ulp is 0.125 (|dx| up to 39 on
+// padded rows, measured on the card; PERF.md). The last GEMM's own flips
+// stay single.
 // The weight and bias gradients stay outside, as plain matmuls and sums
 // (:626-637).
 //
@@ -58,9 +68,10 @@
 // design answers that bound: every product on wgmma, operands brought in by
 // TMA and never converted in shared memory, q.k recomputed in the
 // attention's second pass rather than an [L, L] tile stored. The bf16
-// kernels take row strides and bases that are multiples of 16 bytes (E
-// a multiple of 8); the wrapper refuses other shapes. The backward (K4)
-// still runs fp32 FMA on the CUDA cores: its redesign is a later step.
+// backward (K4) keeps its attention and do = dout . Wo^T on the CUDA cores
+// (see above), so it runs far above its bound. The bf16 kernels take row
+// strides and bases that are multiples of 16 bytes (E a multiple of 8);
+// the wrapper refuses other shapes.
 
 #include "attention_tiles.cuh"
 #include "gemm_sm90.cuh"
@@ -69,7 +80,7 @@ namespace {
 
 // ---------------------------------------------------------------------------
 // C[M, N] = A[M, K] . op(B) (+ bias[N]) on the CUDA cores: the fp32
-// forward's projections and both types' backward ones (TB). op(B) = B[K, N]
+// forward's and backward's (TB) projections. op(B) = B[K, N]
 // row-major, or with TB the transpose of B[N, K] row-major. fp32
 // accumulation, the bias added in fp32 before the one rounding to T. A
 // 128x128 tile per block, 16 deep; each of 256 threads holds 8x8 outputs
@@ -163,14 +174,15 @@ cudaError_t launch_gemm(const void* A, const void* B, const void* bias, void* C,
   return cudaGetLastError();
 }
 
-// The forward's projections: bf16 on the tensor cores, fp32 on the CUDA cores
-template <typename T>
-cudaError_t launch_fwd_gemm(const void* A, const void* B, const void* bias, void* C, int M,
-                            int N, int K, cudaStream_t stream) {
+// The forward's projections (C = A . B + bias) and the backward's dx (TB:
+// C = A . B^T): bf16 on the tensor cores, fp32 on the CUDA cores
+template <typename T, bool TB>
+cudaError_t launch_proj(const void* A, const void* B, const void* bias, void* C, int M, int N,
+                        int K, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    return launch_gemm_sm90(A, B, bias, C, M, N, K, stream);
+    return launch_gemm_sm90<TB>(A, B, bias, C, M, N, K, stream);
   else
-    return launch_gemm<T, false>(A, B, bias, C, M, N, K, stream);
+    return launch_gemm<T, TB>(A, B, bias, C, M, N, K, stream);
 }
 
 template <typename T, int D>
@@ -179,7 +191,7 @@ cudaError_t run_fwd(const void* x, const void* wqkv, const void* bqkv, const voi
                     void* ctx, void* out, void* stat_m, void* stat_l, int B, int L, int E,
                     int P, int H, Dropout drop, cudaStream_t stream) {
   const int M = B * L;
-  cudaError_t err = launch_fwd_gemm<T>(x, wqkv, bqkv, qkv, M, 3 * P, E, stream);
+  cudaError_t err = launch_proj<T, false>(x, wqkv, bqkv, qkv, M, 3 * P, E, stream);
   if (err != cudaSuccess) return err;
   // q, k and v are the three P-wide sections of a qkv row
   const T* sec = static_cast<const T*>(qkv);
@@ -189,7 +201,7 @@ cudaError_t run_fwd(const void* x, const void* wqkv, const void* bqkv, const voi
       Rows<T>{static_cast<T*>(ctx), P}, static_cast<float*>(stat_m),
       static_cast<float*>(stat_l), B, L, H, drop, stream);
   if (err != cudaSuccess) return err;
-  return launch_fwd_gemm<T>(ctx, wo, bo, out, M, E, P, stream);
+  return launch_proj<T, false>(ctx, wo, bo, out, M, E, P, stream);
 }
 
 template <typename T, int D>
@@ -212,7 +224,7 @@ cudaError_t run_bwd(const void* dout, const void* wqkv, const void* wo, const vo
       Rows<T>{dsec, 3 * P}, Rows<T>{dsec + P, 3 * P}, Rows<T>{dsec + 2 * P, 3 * P},
       B, L, H, drop, stream);
   if (err != cudaSuccess) return err;
-  return launch_gemm<T, true>(dqkv, wqkv, nullptr, dx, M, E, 3 * P, stream);
+  return launch_proj<T, true>(dqkv, wqkv, nullptr, dx, M, E, 3 * P, stream);
 }
 
 bool shape_ok(int B, int L, int E, int P, int H) {
@@ -288,6 +300,15 @@ extern "C" int plbt_attention_block_bwd(
     return -1;
   }
   return static_cast<int>(err);
+}
+
+// C[M, N] = A[M, K] . B[N, K]^T in bf16 on the tensor cores: the backward's
+// dx projection (gemm_bias_sm90 reading B K-major) on its own, for checks.
+extern "C" int plbt_gemm_bt(const void* A, const void* B, void* C, int M, int N, int K,
+                            void* stream) {
+  if (M < 1 || N < 1 || K < 1) return -1;
+  return static_cast<int>(
+      launch_gemm_sm90<true>(A, B, nullptr, C, M, N, K, static_cast<cudaStream_t>(stream)));
 }
 
 // The attention dropout's keep mask [B, H, L, L] uint8, from the same

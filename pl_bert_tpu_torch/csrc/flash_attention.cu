@@ -14,15 +14,16 @@
 // memory: the kernels of attention_tiles.cuh, which the attention block
 // shares.
 //
-// q, k, v, do and the outputs are [B, L, H, D] with D = 64; q, k, v and do
+// q, k, v, do and the outputs are [B, L, H, D] with D = 64 or 128; q, k, v and do
 // may be views whose rows are further apart than H*D (the three sections of
 // one fused projection), so the TPU wrapper's fold to [B*H, L, D]
 // (:225-232) is never materialised.
 //
 // The custom-VJP contract of the TPU kernel (:157-189) is kept: the forward
 // saves nothing but its inputs, and the backward recomputes the row max and
-// the denominator (pass 0 of attention_bwd_dq, the forward's own code),
-// then p, the dropout mask and ds. The rounding points are the TPU
+// the denominator (pass 0 of the dq kernel, with the forward's own code, so
+// in bf16 they equal the block forward's saved m and l bit for bit), then
+// p, the dropout mask and ds. The rounding points are the TPU
 // kernel's: p normalised in fp32, dropped out, then rounded to the compute
 // type before p.v (:65-69) -- hence two passes over the keys, not an online
 // softmax that rounds an unnormalised p; delta from the unrounded pd (:109),
@@ -41,9 +42,11 @@
 // (attention_fwd_sm90: q.k and p.v on wgmma, K/V tiles by TMA from a 3-D
 // map over the [B, L, H*D] rows, so q, k, v need 16-byte-aligned bases and
 // row distances); with dropout its Philox draws are work of the same size
-// on the integer units. The fp32 forward and the backward compute on the
-// CUDA cores in fp32 and recompute q.k (four times in the backward), so
-// they run far above their bounds: the backward's redesign is next.
+// on the integer units. The bf16 backward runs on the tensor cores too
+// (attention_bwd_dq_sm90, attention_bwd_dkdv_sm90; q, k, v and do by TMA),
+// forming q.k four times (three passes over the keys in the dq kernel, one
+// in dk/dv) and drawing the dropout mask three times. The fp32 kernels
+// compute on the CUDA cores.
 
 #include "attention_tiles.cuh"
 
@@ -51,35 +54,43 @@ namespace {
 
 bool flash_shape_ok(int B, int L, int H, int D, int ldq, int ldk, int ldv, int ldo) {
   const int P = H * D;
-  return B >= 1 && L >= 1 && H >= 1 && D == 64 && ldq >= P && ldk >= P && ldv >= P &&
-         ldo >= P;
+  return B >= 1 && L >= 1 && H >= 1 && (D == 64 || D == 128) && ldq >= P && ldk >= P &&
+         ldv >= P && ldo >= P;
 }
 
-template <typename T>
+template <typename T, int D>
 cudaError_t flash_fwd(const void* q, const void* k, const void* v, const void* bias_row,
                       const void* seg_row, void* out, int B, int L, int H, int ldq, int ldk,
                       int ldv, int ldo, Dropout drop, cudaStream_t stream) {
-  return launch_attention_fwd<T, 64>(
+  return launch_attention_fwd<T, D>(
       Rows<const T>{static_cast<const T*>(q), ldq}, Rows<const T>{static_cast<const T*>(k), ldk},
       Rows<const T>{static_cast<const T*>(v), ldv}, static_cast<const float*>(bias_row),
       static_cast<const float*>(seg_row), Rows<T>{static_cast<T*>(out), ldo}, nullptr, nullptr,
       B, L, H, drop, stream);
 }
 
-template <typename T>
+// bf16 on the tensor cores, fp32 on the CUDA cores; both recompute m and l
+template <typename T, int D>
 cudaError_t flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                       const void* bias_row, const void* seg_row, void* stat_m, void* stat_l,
                       void* delta, void* dq, void* dk, void* dv, int B, int L, int H, int ldq,
                       int ldk, int ldv, int ldo, Dropout drop, cudaStream_t stream) {
-  const int P = H * 64;  // dq, dk, dv are contiguous [B, L, H, D]
-  return launch_attention_bwd<T, 64, true>(
-      Rows<const T>{static_cast<const T*>(q), ldq}, Rows<const T>{static_cast<const T*>(k), ldk},
-      Rows<const T>{static_cast<const T*>(v), ldv},
-      Rows<const T>{static_cast<const T*>(dout), ldo}, static_cast<float*>(stat_m),
-      static_cast<float*>(stat_l), static_cast<float*>(delta),
-      static_cast<const float*>(bias_row), static_cast<const float*>(seg_row),
-      Rows<T>{static_cast<T*>(dq), P}, Rows<T>{static_cast<T*>(dk), P},
-      Rows<T>{static_cast<T*>(dv), P}, B, L, H, drop, stream);
+  const int P = H * D;  // dq, dk, dv are contiguous [B, L, H, D]
+  const Rows<const T> qr{static_cast<const T*>(q), ldq}, kr{static_cast<const T*>(k), ldk},
+      vr{static_cast<const T*>(v), ldv}, dor{static_cast<const T*>(dout), ldo};
+  const Rows<T> dqr{static_cast<T*>(dq), P}, dkr{static_cast<T*>(dk), P},
+      dvr{static_cast<T*>(dv), P};
+  float* m = static_cast<float*>(stat_m);
+  float* l = static_cast<float*>(stat_l);
+  float* dl = static_cast<float*>(delta);
+  const float* br = static_cast<const float*>(bias_row);
+  const float* sr = static_cast<const float*>(seg_row);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return launch_attention_bwd_sm90<D>(qr, kr, vr, dor, m, l, dl, br, sr, dqr, dkr, dvr, B, L,
+                                        H, drop, stream);
+  else
+    return launch_attention_bwd<T, D, true>(qr, kr, vr, dor, m, l, dl, br, sr, dqr, dkr, dvr, B,
+                                            L, H, drop, stream);
 }
 
 }  // namespace
@@ -90,7 +101,8 @@ cudaError_t flash_bwd(const void* q, const void* k, const void* v, const void* d
 // clamped to _NEG, or NULL; seg_row [B, L] fp32 (exact small integers, -1
 // at padding), or NULL for no segments. dropout != 0 drops attention
 // probabilities with (seed, thresh, inv_keep). Returns cudaGetLastError()
-// after the launch (0 = success), or -1 for arguments it refuses (D != 64).
+// after the launch (0 = success), or -1 for arguments it refuses (D not 64
+// or 128).
 extern "C" int plbt_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias_row, const void* seg_row,
     void* out, int B, int L, int H, int D, int ldq, int ldk, int ldv, int ldo, int dtype,
@@ -98,12 +110,13 @@ extern "C" int plbt_flash_attention_fwd(
   if (!flash_shape_ok(B, L, H, D, ldq, ldk, ldv, ldo)) return -1;
   const Dropout drop = make_dropout(dropout, seed, thresh, inv_keep);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return static_cast<int>(flash_fwd<float>(q, k, v, bias_row, seg_row, out, B, L, H, ldq,
-                                             ldk, ldv, ldo, drop, st));
+  auto run = [&](auto launch) {
+    return static_cast<int>(
+        launch(q, k, v, bias_row, seg_row, out, B, L, H, ldq, ldk, ldv, ldo, drop, st));
+  };
+  if (dtype == 0) return run(D == 64 ? flash_fwd<float, 64> : flash_fwd<float, 128>);
   if (dtype == 1)
-    return static_cast<int>(flash_fwd<__nv_bfloat16>(q, k, v, bias_row, seg_row, out, B, L, H,
-                                                     ldq, ldk, ldv, ldo, drop, st));
+    return run(D == 64 ? flash_fwd<__nv_bfloat16, 64> : flash_fwd<__nv_bfloat16, 128>);
   return -1;
 }
 
@@ -118,13 +131,12 @@ extern "C" int plbt_flash_attention_bwd(
   if (!flash_shape_ok(B, L, H, D, ldq, ldk, ldv, ldo)) return -1;
   const Dropout drop = make_dropout(dropout, seed, thresh, inv_keep);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return static_cast<int>(flash_bwd<float>(q, k, v, dout, bias_row, seg_row, stat_m, stat_l,
-                                             delta, dq, dk, dv, B, L, H, ldq, ldk, ldv, ldo,
-                                             drop, st));
+  auto run = [&](auto launch) {
+    return static_cast<int>(launch(q, k, v, dout, bias_row, seg_row, stat_m, stat_l, delta, dq,
+                                   dk, dv, B, L, H, ldq, ldk, ldv, ldo, drop, st));
+  };
+  if (dtype == 0) return run(D == 64 ? flash_bwd<float, 64> : flash_bwd<float, 128>);
   if (dtype == 1)
-    return static_cast<int>(flash_bwd<__nv_bfloat16>(q, k, v, dout, bias_row, seg_row, stat_m,
-                                                     stat_l, delta, dq, dk, dv, B, L, H, ldq,
-                                                     ldk, ldv, ldo, drop, st));
+    return run(D == 64 ? flash_bwd<__nv_bfloat16, 64> : flash_bwd<__nv_bfloat16, 128>);
   return -1;
 }

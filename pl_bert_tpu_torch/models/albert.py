@@ -34,8 +34,10 @@ between cuBLAS projections, as the JAX model's ``pallas`` branch
 Both run the fused dropout+add+LayerNorm kernels (``ops/fused_ln.py``)
 at the two LayerNorm sites. ``eager`` (or the JAX value ``xla``) runs
 the plain versions of all of them on any device, under autograd when
-training. All three read the same parameters, so one state dict drives
-them all.
+training; a kernel path whose kernels do not take the model's shapes
+(head_dim other than 64 or 128, say) falls back to it when the model is
+built, and the model logs why. All three read the same parameters, so
+one state dict drives them all.
 
 Dropout draws one seed per site per layer application per forward —
 the embedding, then (attention, first LayerNorm, second LayerNorm) for
@@ -45,6 +47,7 @@ counterpart of ``_dropout_rate_seed`` (pl_bert_tpu/models/albert.py:110-119).
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 
 import torch
@@ -53,6 +56,7 @@ from torch import nn
 
 from pl_bert_tpu_torch.ops.attention import (
     fused_attention,
+    kernel_refusal,
     resolve_impl,
     self_attention,
     self_attention_train,
@@ -63,6 +67,8 @@ from pl_bert_tpu_torch.ops.fused_ln import (
     dropout_add_layernorm_plain,
     dropout_add_layernorm_train,
 )
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass(frozen=True)
@@ -214,7 +220,13 @@ class AlbertSelfAttention(nn.Module):
     def __init__(self, cfg: AlbertConfig) -> None:
         super().__init__()
         self.cfg = cfg
-        self.impl = resolve_impl(cfg.attention_impl)
+        self.impl = resolve_impl(cfg.attention_impl, cfg.head_dim, cfg.hidden_size, cfg.dtype)
+        if self.impl == "eager" and resolve_impl(cfg.attention_impl) != "eager":
+            logger.warning("attention_impl %r falls back to the eager path: %s",
+                           cfg.attention_impl,
+                           kernel_refusal(cfg.head_dim, cfg.hidden_size, cfg.dtype))
+        else:
+            logger.info("attention_impl %r runs the %s path", cfg.attention_impl, self.impl)
         H = cfg.hidden_size
         self.query = nn.Linear(H, H)
         self.key = nn.Linear(H, H)

@@ -3,8 +3,8 @@
 The counterpart of ``pl_bert_tpu/ops/attention.py``. There, the TPU
 gates (``_on_tpu``, ``pallas_supported``, ``fused_block_supported``)
 choose between the Pallas kernels and XLA einsum attention. Here, the
-model's ``attention_impl`` names one of three paths on every device
-(:func:`resolve_impl`):
+model's ``attention_impl`` names one of three paths, and the model's
+shapes may send a kernel path to ``eager`` (:func:`resolve_impl`):
 
 - ``block`` — the hand-written attention-block kernels
   (``ops/attention_block.py``: QKV projection, attention and output
@@ -38,17 +38,41 @@ IMPL_PATHS = {
     "pallas": "flash",
     "eager": "eager", "xla": "eager",
 }
+# the head widths the card's attention kernels are built for (both paths)
+KERNEL_HEAD_DIMS = (64, 128)
 
 
-def resolve_impl(attention_impl: str) -> str:
+def kernel_refusal(head_dim, width, dtype) -> str | None:
+    """Why the card's attention kernels (block and flash alike) do not
+    take a model of this head width, width and compute dtype, or None
+    when they do: head_dim 64 or 128, and in bf16 a width that is a
+    multiple of 8 (TMA reads rows 16-byte aligned)."""
+    if head_dim not in KERNEL_HEAD_DIMS:
+        return f"head_dim {head_dim} is not one of the kernels' {KERNEL_HEAD_DIMS}"
+    if width % head_dim:
+        return f"width {width} is not a whole number of heads of {head_dim}"
+    if dtype == torch.bfloat16 and width % 8:
+        return f"the bf16 kernels read rows through TMA and width {width} is no multiple of 8"
+    return None
+
+
+def resolve_impl(attention_impl: str, head_dim=None, width=None, dtype=None) -> str:
     """``"block"``, ``"flash"`` or ``"eager"`` for a config's
-    ``attention_impl`` (see ``IMPL_PATHS``)."""
+    ``attention_impl`` (see ``IMPL_PATHS``). With the model's shapes
+    (``head_dim``, ``width`` = hidden size, compute ``dtype``) a kernel
+    path whose kernels do not take them falls back to ``eager``, as JAX's
+    ``_resolve_impl`` (pl_bert_tpu/models/albert.py:167-209) falls back
+    to ``xla``; :func:`kernel_refusal` says why. Without shapes the name
+    alone decides."""
     try:
-        return IMPL_PATHS[attention_impl]
+        path = IMPL_PATHS[attention_impl]
     except KeyError:
         raise ValueError(
             f"unsupported attention_impl {attention_impl!r}: one of {tuple(IMPL_PATHS)}"
         ) from None
+    if path != "eager" and head_dim is not None and kernel_refusal(head_dim, width, dtype):
+        return "eager"
+    return path
 
 
 def eager_attention(q, k, v, bias=None, segment_ids=None, dtype=torch.bfloat16):

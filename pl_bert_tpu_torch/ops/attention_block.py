@@ -15,14 +15,16 @@ Replaces the Pallas kernels of ``pl_bert_tpu/ops/attention_block.py``:
 The kernels live in ``csrc/attention_block.cu`` with
 ``csrc/gemm_sm90.cuh`` (the GEMMs) and ``csrc/attention_tiles.cuh`` (the
 attention kernels, shared with ``ops/flash_attention.py``); the first's
-header says what bounds them on the card. In bf16 the forward runs on
-the tensor cores (``wgmma`` fed by TMA, for the projections and the
-attention alike); in fp32 (K2) and in the backward (K4) on the CUDA
-cores. All projections, forward and backward
-(``do = dout·Woᵀ``, ``dx = [dq|dk|dv]·[Wq|Wk|Wv]ᵀ``), run in the
-hand-written GEMMs there, not in cuBLAS. The weight and bias gradients
-are plain matmuls and sums outside the kernels, as the TPU left them to
-XLA (:626-637).
+header says what bounds them on the card. In bf16 the forward (K1, K3)
+runs on the tensor cores (``wgmma`` fed by TMA, for the projections and
+the attention alike), and so does the backward's last projection; the
+backward's attention and ``do`` projection stay on the CUDA cores, whose
+FMA chains reproduce the plain version's cuBLAS fp32 sums (the header of
+``attention_block.cu`` says why). fp32 runs on the CUDA cores. All
+projections, forward and backward (``do = dout·Woᵀ``,
+``dx = [dq|dk|dv]·[Wq|Wk|Wv]ᵀ``), run in the hand-written GEMMs there,
+not in cuBLAS. The weight and bias gradients are plain matmuls and sums
+outside the kernels, as the TPU left them to XLA (:626-637).
 
 The light and the training forward run the same kernels, so they return
 identical values. Attention-probability dropout is a Philox4x32-10 keyed
@@ -37,7 +39,7 @@ Differences from the TPU kernels, all deliberate:
   the TPU kernel needs ``L % 128 == 0``; head_dim 64 or 128, as there;
 - one design for bf16 and fp32 (the TPU picked a grid by VMEM size),
   bf16 on the tensor cores and fp32 on the CUDA cores;
-- the bf16 forward reads through TMA, which needs 16-byte-aligned bases
+- the bf16 kernels read through TMA, which needs 16-byte-aligned bases
   and row strides: on a CUDA tensor a width ``E`` that is not a multiple
   of 8, or a misaligned input or weight, raises;
 - the serving weights arrive packed once per load (``pack_weights``):
@@ -63,21 +65,20 @@ import math
 
 import torch
 
-from pl_bert_tpu_torch.ops.attention import NEG
+from pl_bert_tpu_torch.ops.attention import KERNEL_HEAD_DIMS, NEG
 from pl_bert_tpu_torch.runtime import build
 
 LAUNCHES = build.LaunchCounter("attention_block")  # K1/K2, the light forward
 LAUNCHES_TRAIN = build.LaunchCounter("attention_block_train")  # K3
 LAUNCHES_BWD = build.LaunchCounter("attention_block_bwd")  # K4
-HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK32 = 0xFFFFFFFF
 
 
 def _head_dim(width: int, num_heads: int) -> int:
-    if width % num_heads or width // num_heads not in HEAD_DIMS:
+    if width % num_heads or width // num_heads not in KERNEL_HEAD_DIMS:
         raise ValueError(
-            f"attention_block supports head_dim {HEAD_DIMS}; got width "
+            f"attention_block supports head_dim {KERNEL_HEAD_DIMS}; got width "
             f"{width} over {num_heads} heads"
         )
     return width // num_heads
@@ -202,7 +203,9 @@ def attention_block_packed(
 ):
     """The light forward (K1/K2) on weights from :func:`pack_weights`.
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises."""
+    kernel or raises. Either way a head_dim the kernels are not built for
+    raises (the plain version itself takes any)."""
+    _head_dim(wo.shape[0], num_heads)
     if hidden.device.type == "cpu":
         return attention_block_plain(
             hidden, wqkv, bqkv, wo, bo, num_heads, bias=bias,
@@ -225,9 +228,10 @@ def attention_block_plain(
     bias=None, segment_ids=None, out_dtype=None,
     dropout_rate: float = 0.0, dropout_seed=None, keep=None,
 ):
-    """The light forward's function in plain PyTorch; differentiable, so
-    it is also the eager training path. ``keep``: a [B, H, L, L] mask to
-    drop with instead of the kernels' own (:func:`dropout_keep`)."""
+    """The light forward's function in plain PyTorch, at any head_dim;
+    differentiable, so it is also the eager training path. ``keep``: a
+    [B, H, L, L] mask to drop with instead of the kernels' own
+    (:func:`dropout_keep`)."""
     B, L, _ = hidden.shape
     bias_row, seg_row = rows(bias, segment_ids, B, L)
     out, _ = train_forward_plain(
@@ -243,7 +247,9 @@ def train_forward(hidden, wqkv, bqkv, wo, bo, num_heads: int, bias_row=None,
     = ``(qkv [B·L, 3P], ctx [B·L, P], m [B, H, L], l [B, H, L])``, what
     :func:`train_backward` needs. ``bias_row``/``seg_row`` as made by
     :func:`rows`. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernels or raises."""
+    launches the kernels or raises; a head_dim the kernels are not built
+    for raises on either."""
+    _head_dim(wo.shape[0], num_heads)
     if hidden.device.type == "cpu":
         return train_forward_plain(hidden, wqkv, bqkv, wo, bo, num_heads, bias_row,
                                    seg_row, dropout_rate, dropout_seed)
@@ -297,7 +303,6 @@ def train_forward_plain(hidden, wqkv, bqkv, wo, bo, num_heads: int, bias_row=Non
     returns."""
     B, L, E = hidden.shape
     P = wo.shape[0]
-    _head_dim(P, num_heads)
     cdt = hidden.dtype
     qkv = torch.addmm(bqkv.float(), hidden.reshape(B * L, E).float(), wqkv.float()).to(cdt)
     _, _, v, s = _scores(qkv, num_heads, bias_row, seg_row, B, L)
@@ -321,7 +326,8 @@ def train_backward(dout, hidden, wqkv, wo, saved, num_heads: int, bias_row=None,
     ``dout`` [B, L, E] and the training forward's ``saved``; ``dqkv`` is
     [dq|dk|dv], what the weight gradients are contracted from. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernels or
-    raises."""
+    raises; a head_dim the kernels are not built for raises on either."""
+    _head_dim(wo.shape[0], num_heads)
     if dout.device.type == "cpu":
         return train_backward_plain(dout, hidden, wqkv, wo, saved, num_heads, bias_row,
                                     seg_row, dropout_rate, dropout_seed)
@@ -334,17 +340,32 @@ def train_backward_plain(dout, hidden, wqkv, wo, saved, num_heads: int, bias_row
                          seg_row=None, dropout_rate: float = 0.0, dropout_seed=None,
                          keep=None):
     """K4's function in plain PyTorch, written out from the saved tensors
-    in the formulas of ``_bwd_kernel`` (:327-401): ``p = exp(s − m)/l``
-    from the saved statistics; the dropped-out ``pd`` rounded for ``dv``;
+    in the formulas of ``_bwd_kernel`` (:327-401): ``do = dout·Woᵀ``, the
+    attention's backward (:func:`attention_backward_plain`), then
+    ``dx = dqkv·Wqkvᵀ``, each product summed in fp32 and rounded once."""
+    B, L, E = hidden.shape
+    cdt = hidden.dtype
+    do = (dout.reshape(B * L, E).to(cdt).float() @ wo.float().T).to(cdt)
+    dqkv, _ = attention_backward_plain(do, saved, num_heads, bias_row, seg_row, dropout_rate,
+                                       dropout_seed, keep)
+    dx = (dqkv.float() @ wqkv.float().T).to(cdt).reshape(B, L, E)
+    return dx, dqkv
+
+
+def attention_backward_plain(do, saved, num_heads: int, bias_row=None, seg_row=None,
+                             dropout_rate: float = 0.0, dropout_seed=None, keep=None):
+    """The attention part of K4's backward in plain PyTorch: ``(dqkv
+    [B·L, 3P], delta [B, H, L])`` from ``do`` [B·L, P] in the compute
+    dtype and the training forward's ``saved``. ``p = exp(s − m)/l`` from
+    the saved statistics; the dropped-out ``pd`` rounded for ``dv``;
     ``delta = Σ_j dpd·pd`` with the unrounded ``pd``;
     ``ds = ((pd·dpd − p·delta)·scale)`` rounded before ``dq = ds·k`` and
     ``dk = dsᵀ·q``."""
-    B, L, E = hidden.shape
-    P = wo.shape[0]
-    D = _head_dim(P, num_heads)
-    cdt = hidden.dtype
     qkv, _, m, den = saved
-    do = (dout.reshape(B * L, E).to(cdt).float() @ wo.float().T).to(cdt)
+    B, _, L = m.shape
+    P = qkv.shape[1] // 3
+    D = P // num_heads
+    cdt = qkv.dtype
     do = do.reshape(B, L, num_heads, D).float()
     q, k, v, s = _scores(qkv, num_heads, bias_row, seg_row, B, L)
     p = torch.exp(s - m[..., None]) / den[..., None]
@@ -356,8 +377,7 @@ def train_backward_plain(dout, hidden, wqkv, wo, saved, num_heads: int, bias_row
     dq = torch.einsum("bhlm,bmhd->blhd", ds, k.float())
     dk = torch.einsum("bhlm,blhd->bmhd", ds, q.float())
     dqkv = torch.cat([t.reshape(B * L, P) for t in (dq, dk, dv)], dim=1).to(cdt)
-    dx = (dqkv.float() @ wqkv.float().T).to(cdt).reshape(B, L, E)
-    return dx, dqkv
+    return dqkv, delta[..., 0]
 
 
 class AttentionBlockFunction(torch.autograd.Function):
@@ -467,8 +487,8 @@ def _check_rows(dev, B: int, L: int, bias_row, seg_row) -> None:
 
 
 def _check_tma(width: int, **tensors) -> None:
-    """The bf16 forward's kernels load through TMA: every base and row
-    stride a multiple of 16 bytes (P = heads·head_dim always is)."""
+    """The bf16 kernels load through TMA: every base and row stride a
+    multiple of 16 bytes (P = heads·head_dim always is)."""
     if width % 8:
         raise ValueError(f"attention_block bf16 kernels need a width that is a multiple of 8; "
                          f"got {width}")
@@ -521,6 +541,8 @@ def _launch_bwd(dout, hidden, wqkv, wo, saved, num_heads, bias_row, seg_row, rat
             wo=(wo, (P, E), cdt), qkv=(qkv, (B * L, 3 * P), cdt),
             m=(m, stats, torch.float32), l=(l, stats, torch.float32))
     _check_rows(dev, B, L, bias_row, seg_row)
+    if cdt == torch.bfloat16:
+        _check_tma(E, wqkv=wqkv)  # dx = dqkv·Wqkvᵀ reads it through TMA
     do = torch.empty((B * L, P), dtype=cdt, device=dev)
     delta = torch.empty(stats, dtype=torch.float32, device=dev)
     dqkv = torch.empty((B * L, 3 * P), dtype=cdt, device=dev)

@@ -26,16 +26,19 @@ path and the block path drop the same probabilities.
 Differences from the TPU kernels, all deliberate:
 
 - any sequence length (``pl_bert_tpu/ops/attention.py:44`` needs
-  ``L % 128 == 0``, a TPU tiling gate); head_dim 64 only — another
-  width raises, it does not fall back;
+  ``L % 128 == 0``, a TPU tiling gate); head_dim 64 or 128 (the TPU
+  takes any multiple of 64) — another width raises here, and the model
+  sends it to the eager path when it is built (``attention.resolve_impl``);
 - q, k, v are read in their [B, L, H, D] layout, also as views of one
   fused projection, so the fold to [B·H, L, D] (:225-232) is never made;
 - no bias or no segments means no row is passed (the TPU passes zeros);
 - the kernels write the compute dtype: on a CUDA tensor an ``out_dtype``
   other than ``q.dtype`` raises;
-- the bf16 forward runs on the tensor cores and reads q, k, v through
-  TMA: a base or a row distance that is not a multiple of 16 bytes
-  raises.
+- in bf16 both kernels run on the tensor cores and read q, k, v (and
+  do) through TMA: a base or a row distance that is not a multiple of 16
+  bytes raises. The backward's recomputed row max and denominator are
+  the block forward's saved ones bit for bit (:func:`_launch_bwd` returns
+  them for that check).
 
 Each kernel has a plain PyTorch version with the TPU kernel's rounding
 points beside it; a wrapper takes the plain version for CPU tensors only.
@@ -48,12 +51,11 @@ import math
 import torch
 
 from pl_bert_tpu_torch.ops import attention_block as ab
-from pl_bert_tpu_torch.ops.attention import NEG
+from pl_bert_tpu_torch.ops.attention import KERNEL_HEAD_DIMS, NEG
 from pl_bert_tpu_torch.runtime import build
 
 LAUNCHES = build.LaunchCounter("flash_attention")  # K7
 LAUNCHES_BWD = build.LaunchCounter("flash_attention_bwd")  # K8
-HEAD_DIM = 64
 
 
 # --- plain versions -----------------------------------------------------------
@@ -129,11 +131,7 @@ def flash_attention_fwd(q, k, v, bias_row=None, seg_row=None, dropout_rate: floa
             f"flash_attention kernel writes {q.dtype}; out_dtype {out_dtype} is not built"
         )
     q, k, v = (_rows_view(t) for t in (q, k, v))
-    if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16 or t.stride(1) % 8:
-                raise ValueError(f"flash_attention bf16 kernel reads {name} through TMA: base "
-                                 "and row distance must be multiples of 16 bytes")
+    _check_tma(q=q, k=k, v=v)
     out = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
     fn = _entry("plbt_flash_attention_fwd", 6, 9)
     with torch.cuda.device(q.device):
@@ -156,6 +154,13 @@ def flash_attention_bwd(dout, q, k, v, bias_row=None, seg_row=None,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(dout, q, k, v, bias_row, seg_row, dropout_rate,
                                          dropout_seed)
+    return _launch_bwd(dout, q, k, v, bias_row, seg_row, dropout_rate, dropout_seed)[:3]
+
+
+def _launch_bwd(dout, q, k, v, bias_row, seg_row, dropout_rate, dropout_seed):
+    """K8 on CUDA tensors: ``(dq, dk, dv, m, l)``, with the row max and
+    denominator [B, H, L] fp32 that the dq kernel's first pass recomputed
+    (rows past a batch item's L are not written)."""
     B, L, H, D = _check(q, k, v, bias_row, seg_row)
     if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
         raise ValueError(
@@ -163,6 +168,7 @@ def flash_attention_bwd(dout, q, k, v, bias_row=None, seg_row=None,
             f"{tuple(dout.shape)} {dout.dtype} on {dout.device}"
         )
     q, k, v, dout = (_rows_view(t) for t in (q, k, v, dout))
+    _check_tma(q=q, k=k, v=v, dout=dout)
     dev = q.device
     dq, dk, dv = (torch.empty((B, L, H, D), dtype=q.dtype, device=dev) for _ in range(3))
     # scratch: the recomputed row max and denominator, and delta
@@ -178,7 +184,7 @@ def flash_attention_bwd(dout, q, k, v, bias_row=None, seg_row=None,
         )
     build.check(status, "flash_attention backward kernel")
     LAUNCHES_BWD.add()
-    return dq, dk, dv
+    return dq, dk, dv, m, den
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -232,9 +238,10 @@ def _check(q, k, v, bias_row, seg_row) -> tuple[int, int, int, int]:
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
     if q.dtype not in ab._DTYPE_CODES:
         raise TypeError(f"flash_attention kernel takes float32/bfloat16, got {q.dtype}")
-    if q.dim() != 4 or q.shape[-1] != HEAD_DIM:
+    if q.dim() != 4 or q.shape[-1] not in KERNEL_HEAD_DIMS:
         raise ValueError(
-            f"flash_attention supports [B, L, H, {HEAD_DIM}] inputs; got {tuple(q.shape)}"
+            f"flash_attention supports [B, L, H, D] inputs with D in {KERNEL_HEAD_DIMS}; "
+            f"got {tuple(q.shape)}"
         )
     for name, t in (("k", k), ("v", v)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -245,6 +252,15 @@ def _check(q, k, v, bias_row, seg_row) -> tuple[int, int, int, int]:
     B, L, H, D = q.shape
     ab._check_rows(q.device, B, L, bias_row, seg_row)
     return B, L, H, D
+
+
+def _check_tma(**tensors) -> None:
+    """The bf16 kernels read their inputs through TMA: each base and row
+    distance a multiple of 16 bytes."""
+    for name, t in tensors.items():
+        if t.dtype == torch.bfloat16 and (t.data_ptr() % 16 or t.stride(1) % 8):
+            raise ValueError(f"flash_attention bf16 kernels read {name} through TMA: base "
+                             "and row distance must be multiples of 16 bytes")
 
 
 def _rows_view(t):

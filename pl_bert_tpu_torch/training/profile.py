@@ -34,9 +34,11 @@ GROUPS = (
     # the block path's K3/K4 and the flash path's K7/K8 run the same
     # attention kernels (csrc/attention_tiles.cuh); one path a run
     ("attention_fwd", "K3 / K7 attention forward"),
-    ("gemm_bias_sm90", "K3 projections (wgmma)"),
-    ("attention_bwd", "K4 / K8 attention backward"),
-    ("gemm_bias<__nv_bfloat16, true>", "K4 projections"),
+    ("gemm_bias_sm90<false>", "K3 projections (wgmma)"),
+    ("gemm_bias_sm90<true>", "K4 dx projection (wgmma)"),
+    ("gemm_bias<__nv_bfloat16, true>", "K4 do projection (CUDA cores)"),
+    ("attention_bwd_dq", "K4 / K8 attention backward: dq"),
+    ("attention_bwd_dkdv", "K4 / K8 attention backward: dk/dv"),
     ("_fwd_kernel", "K5 LN forward (Triton)"),
     ("_bwd_kernel", "K6 LN backward (Triton)"),
     *((key, "cuBLAS GEMMs (FFN, heads, weight gradients)")

@@ -20,7 +20,7 @@ One process, one card: the eager train step of ``train_step.py`` with
 the hand-written kernels; the host pipeline (host masking, or packed
 arrays for on-device masking) prefetched on a thread, which also starts
 the host-to-device copy. The mesh, ZeRO-1, multi-host initialisation,
-packed stores and the multi-task head are not ported yet and raise
+packed stores, remat and the multi-task head are not ported yet and raise
 (``train_step.check_ported``); ``prng_impl`` is read and ignored.
 
 Run: ``python -m pl_bert_tpu_torch.training.train --config_path

@@ -32,7 +32,7 @@ seed never syncs the device, and one seed list drives every attention
 path.
 
 Not ported yet — each raises where asked for: the multi-task grapheme
-head and a packed store directory (see :func:`check_ported`).
+head, ``remat`` and a packed store directory (see :func:`check_ported`).
 """
 
 from __future__ import annotations
@@ -65,6 +65,10 @@ def check_ported(config) -> None:
         raise NotImplementedError(
             f"training_dataset {name!r} is a packed store, which is not yet ported to "
             "pl_bert_tpu_torch")
+    if tp.remat:
+        raise NotImplementedError(
+            "training_params.remat: true (recomputing the encoder's activations in the "
+            "backward) is not yet ported to pl_bert_tpu_torch")
     if (tp.data_axis, tp.model_axis) not in ((1, 1), (-1, 1)):
         raise NotImplementedError(
             f"data_axis {tp.data_axis} / model_axis {tp.model_axis}: more than one device "

@@ -223,20 +223,18 @@ def test_train_step_kernel_path_follows_plain_path(dev):
         assert k["grad_norm"] == pytest.approx(p["grad_norm"], rel=1e-4)
 
 
-def _flash_case(dev, dtype, B=3, L=100, H=4, segments=True, fused=False):
-    """q, k, v, dout [B, L, H, 64] (``fused``: views of one [B, L, 3·H·64]
-    projection), a padding bias with a fully masked row, packed segments."""
-    from pl_bert_tpu_torch.ops import flash_attention as fa
-
-    rng = np.random.default_rng(L + H)
+def _flash_case(dev, dtype, B=3, L=100, H=4, segments=True, fused=False, D=64, lengths=None):
+    """q, k, v, dout [B, L, H, D] (``fused``: views of one [B, L, 3·H·D]
+    projection), a padding bias with a fully masked row (or ``lengths``),
+    packed segments."""
+    rng = np.random.default_rng(L + H + D)
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
-    D = fa.HEAD_DIM
     qkv = t(rng.standard_normal((B, L, 3 * H * D)) * 0.7).to(dtype)
     q, k, v = (s.reshape(B, L, H, D) for s in qkv.split(H * D, dim=-1))
     if not fused:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     dout = t(rng.standard_normal((B, L, H, D))).to(dtype)
-    lengths = np.array([L, L // 3, 0])[:B]
+    lengths = np.array([L, L // 3, 0])[:B] if lengths is None else np.asarray(lengths)
     valid = np.arange(L)[None] < lengths[:, None]
     seg = None
     if segments:
@@ -246,16 +244,18 @@ def _flash_case(dev, dtype, B=3, L=100, H=4, segments=True, fused=False):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("L,H,segments,fused,rate", [
-    (128, 4, False, False, 0.0), (100, 4, True, True, 0.0), (200, 2, True, False, 0.1),
-    (512, 12, True, True, 0.1),
+@pytest.mark.parametrize("L,H,segments,fused,rate,D", [
+    (128, 4, False, False, 0.0, 64), (100, 4, True, True, 0.0, 64),
+    (200, 2, True, False, 0.1, 64), (512, 12, True, True, 0.1, 64),
+    (100, 2, True, True, 0.0, 128), (200, 6, True, True, 0.1, 128),
 ])
-def test_flash_attention_kernels_match_plain(dev, dtype, L, H, segments, fused, rate):
+def test_flash_attention_kernels_match_plain(dev, dtype, L, H, segments, fused, rate, D):
     """K7 and K8 against their plain versions on the same inputs, the
-    plain ones dropping with the mask the kernels' Philox code writes."""
+    plain ones dropping with the mask the kernels' Philox code writes;
+    head_dim 64 and 128."""
     from pl_bert_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, dout, bias_row, seg_row = _flash_case(dev, dtype, 3, L, H, segments, fused)
+    q, k, v, dout, bias_row, seg_row = _flash_case(dev, dtype, 3, L, H, segments, fused, D)
     B = q.shape[0]
     seed = 11 if rate else None
     keep = ab.dropout_mask(11, rate, B, H, L, dev) if rate else None
@@ -269,6 +269,58 @@ def test_flash_attention_kernels_match_plain(dev, dtype, L, H, segments, fused, 
     assert out.shape == q.shape and out.dtype == dtype
     for a, r in [(out, ref), *zip(grads, rgrads)]:
         _close(a, r, dtype)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("L", [64, 100, 200, 512])
+@pytest.mark.parametrize("segments", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_backward_matches_plain(dev, D, L, segments, rate):
+    """The bf16 backwards against the plain backward: K8 (the dq and dk/dv
+    kernels on wgmma, statistics recomputed) and K4 (statistics from K3,
+    its dx projection on the wgmma GEMM): rows of length L, 5 and 0,
+    packed segments or none, dropout 0 and 0.1."""
+    from pl_bert_tpu_torch.ops import flash_attention as fa
+
+    H, dtype = 2, torch.bfloat16
+    q, k, v, dout, bias_row, seg_row = _flash_case(dev, dtype, 3, L, H, segments, True, D,
+                                                    lengths=[L, 5, 0])
+    seed = 13 if rate else None
+    keep = ab.dropout_mask(13, rate, 3, H, L, dev) if rate else None
+    grads = fa.flash_attention_bwd(dout, q, k, v, bias_row, seg_row, rate, seed)
+    rgrads = fa.flash_attention_bwd_plain(dout, q, k, v, bias_row, seg_row, rate, seed, keep=keep)
+    torch.cuda.synchronize()
+    for a, r in zip(grads, rgrads):
+        _close(a, r, dtype)
+
+    x, wqkv, bqkv, wo, bo, _, _, _ = _block_case(dev, dtype, 3, L, H * D, H)
+    dx_out = torch.randn(3, L, H * D, device=dev, generator=torch.Generator(dev).manual_seed(1))
+    dx_out = dx_out.to(dtype)
+    _, saved = ab.train_forward(x, wqkv, bqkv, wo, bo, H, bias_row, seg_row, rate, seed)
+    got = ab.train_backward(dx_out, x, wqkv, wo, saved, H, bias_row, seg_row, rate, seed)
+    ref = ab.train_backward_plain(dx_out, x, wqkv, wo, saved, H, bias_row, seg_row, rate, seed,
+                                  keep=keep)
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        _close(a, r, dtype)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("segments", [False, True])
+def test_flash_backward_statistics_equal_the_block_forwards(dev, D, segments):
+    """K8's first pass recomputes the row max and denominator with the
+    forward's own functions: on views of K3's qkv they equal K3's saved m
+    and l bit for bit."""
+    from pl_bert_tpu_torch.ops import flash_attention as fa
+
+    B, L, H = 3, 200, 768 // D
+    x, wqkv, bqkv, wo, bo, _, bias_row, seg_row = _block_case(dev, torch.bfloat16, B, L, 768, H)
+    seg_row = seg_row if segments else None
+    _, (qkv, _, m, l) = ab.train_forward(x, wqkv, bqkv, wo, bo, H, bias_row, seg_row, 0.1, 3)
+    q, k, v = (t.reshape(B, L, H, D) for t in qkv.reshape(B, L, 3 * H * D).split(H * D, dim=-1))
+    *_, m8, l8 = fa._launch_bwd(torch.zeros_like(q), q, k, v, bias_row, seg_row, 0.1, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(m8, m) and torch.equal(l8, l)
 
 
 def test_flash_attention_autograd_runs_the_kernels(dev):
@@ -292,7 +344,7 @@ def test_flash_attention_autograd_runs_the_kernels(dev):
 def test_flash_attention_refuses_what_is_not_built_on_cuda(dev):
     from pl_bert_tpu_torch.ops import flash_attention as fa
 
-    q = torch.zeros(1, 64, 2, 128, device=dev)  # head_dim 128
+    q = torch.zeros(1, 64, 2, 96, device=dev)  # head_dim 96: neither 64 nor 128
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)
     q = torch.zeros(1, 64, 2, 64, device=dev)

@@ -22,16 +22,22 @@ from pl_bert_tpu_torch.config import ModelParams
 from pl_bert_tpu_torch.models.albert import build_model, init_params
 from pl_bert_tpu_torch.ops import attention_block as ab
 from pl_bert_tpu_torch.ops import flash_attention as fa
-from pl_bert_tpu_torch.ops.attention import IMPL_PATHS, fused_attention, resolve_impl
+from pl_bert_tpu_torch.ops.attention import (
+    IMPL_PATHS,
+    fused_attention,
+    kernel_refusal,
+    resolve_impl,
+)
 
 B, L, H, D = 2, 128, 2, 64
 FP32 = dict(rtol=1e-5, atol=5e-6)
 BF16_ULP = 2.0 ** -8
 
 
-def _inputs(seed=0, length=L, padding=False, segments=False):
+def _inputs(seed=0, length=L, padding=False, segments=False, head_dim=D):
     rng = np.random.default_rng(seed)
-    q, k, v, g = (rng.standard_normal((B, length, H, D)).astype(np.float32) for _ in range(4))
+    q, k, v, g = (rng.standard_normal((B, length, H, head_dim)).astype(np.float32)
+                  for _ in range(4))
     lengths = np.array([length, length * 3 // 5]) if padding else np.array([length] * B)
     valid = np.arange(length)[None, :] < lengths[:, None]
     bias = seg = None
@@ -79,6 +85,16 @@ def test_flash_matches_jax_kernel_fp32(padding, segments):
         np.testing.assert_allclose(got, want, **FP32)
 
 
+@pytest.mark.parametrize("padding", [False, True])
+def test_flash_matches_jax_kernel_fp32_head_dim_128(padding):
+    """head_dim 128, which the port's kernels take as JAX's do: the plain
+    forward and backward against the Pallas kernel in interpret mode,
+    with packed segments."""
+    inputs = _inputs(seed=5, padding=padding, segments=True, head_dim=128)
+    for got, want in zip(_port(*inputs, torch.float32), _jax(*inputs, jnp.float32)):
+        np.testing.assert_allclose(got, want, **FP32)
+
+
 @pytest.mark.parametrize("padding,segments", [(False, False), (True, True)])
 def test_flash_matches_jax_kernel_bf16(padding, segments):
     inputs = _inputs(seed=1, padding=padding, segments=segments)
@@ -118,10 +134,11 @@ def test_any_length_against_xla_attention():
 
 
 def test_other_head_widths_raise_on_the_kernel_path():
-    """head_dim 64 only, a deliberate difference (the TPU takes multiples
-    of 64): the kernel's checks refuse another width, they do not fall
-    back. They run before any launch, so a CPU test can reach them."""
-    q = torch.zeros(1, 16, 2, 128)
+    """head_dim 64 or 128 (the TPU takes any multiple of 64): the kernel's
+    checks refuse another width, they do not fall back (the model picks
+    the eager path for it when it is built). They run before any launch,
+    so a CPU test can reach them."""
+    q = torch.zeros(1, 16, 2, 32)
     with pytest.raises(ValueError, match="cpu or cuda"):
         fa._check(q.to("meta"), q.to("meta"), q.to("meta"), None, None)
     fake = torch.empty(0, device="meta")
@@ -129,12 +146,18 @@ def test_other_head_widths_raise_on_the_kernel_path():
     class Cuda:  # a tensor's facts, as _check reads them
         device = torch.device("cuda", 0)
         dtype = torch.float32
-        shape = (1, 16, 2, 128)
+        shape = (1, 16, 2, 32)
 
         def dim(self):
             return 4
 
-    with pytest.raises(ValueError, match=r"\[B, L, H, 64\]"):
+    with pytest.raises(ValueError, match=r"D in \(64, 128\)"):
+        fa._check(Cuda(), fake, fake, None, None)
+    Cuda.shape = (1, 16, 2, 96)
+    with pytest.raises(ValueError, match=r"D in \(64, 128\)"):
+        fa._check(Cuda(), fake, fake, None, None)
+    Cuda.shape = (1, 16, 2, 128)  # taken: the width check passes, the next one reads k
+    with pytest.raises(ValueError, match="flash_attention k"):
         fa._check(Cuda(), fake, fake, None, None)
 
 
@@ -182,6 +205,53 @@ def test_dropout_forward_and_backward_share_one_mask():
 ])
 def test_resolve_impl_maps_each_config_value_to_its_path(impl, path):
     assert resolve_impl(impl) == path and IMPL_PATHS[impl] == path
+
+
+@pytest.mark.parametrize("impl", ["auto", "kernel", "pallas_block", "pallas", "xla"])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resolve_impl_falls_back_where_the_kernels_do_not_take_the_shape(impl, head_dim, dtype):
+    """With the model's shapes a kernel path whose kernels do not take
+    them goes to ``eager``, as JAX's ``_resolve_impl`` goes to ``xla``:
+    head_dim 64 and 128 keep their path (12 heads, width 768 or 1536),
+    head_dim 32 falls back and ``kernel_refusal`` says why."""
+    width = 12 * head_dim
+    path = resolve_impl(impl, head_dim, width, dtype)
+    if head_dim == 32 and IMPL_PATHS[impl] != "eager":
+        assert path == "eager"
+        assert "head_dim 32" in kernel_refusal(head_dim, width, dtype)
+    else:
+        assert path == IMPL_PATHS[impl]
+        assert head_dim == 32 or kernel_refusal(head_dim, width, dtype) is None
+
+
+def test_kernel_refusal_names_widths_the_kernels_cannot_read():
+    """A width that is no whole number of heads, or in bf16 no multiple
+    of 8 (TMA's 16-byte rows), is refused; fp32 takes any whole width."""
+    assert "whole number" in kernel_refusal(64, 130, torch.float32)
+    assert kernel_refusal(64, 128, torch.bfloat16) is None
+    assert resolve_impl("auto", 64, 130, torch.float32) == "eager"
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
+def test_flagship_and_narrow_heads_resolve_when_the_model_is_built(impl, caplog):
+    """The flagship shape (12 heads of 64) keeps its kernel path; 12
+    heads of 32 build, run the eager path, and the model logs why."""
+    import logging
+
+    base = ModelParams(hidden_size=384, num_attention_heads=12, intermediate_size=256,
+                       max_position_embeddings=64, num_hidden_layers=1, embedding_size=32,
+                       attention_impl=impl)
+    with caplog.at_level(logging.INFO, logger="pl_bert_tpu_torch.models.albert"):
+        narrow = build_model(base, "bf16")
+    assert narrow.encoder.encoder.layer.attention.impl == "eager"
+    assert any("falls back to the eager path" in r.message and "head_dim 32" in r.message
+               for r in caplog.records)
+    flagship = build_model(dataclasses.replace(base, hidden_size=768), "bf16")
+    assert flagship.encoder.encoder.layer.attention.impl == IMPL_PATHS[impl]
+    ids = torch.arange(64)[None].repeat(2, 1) % 100
+    out = init_params(narrow, seed=1)(ids, torch.ones(2, 64, dtype=torch.int32))
+    assert out.shape == (2, 64, 188) and torch.isfinite(out).all()
 
 
 def test_resolve_impl_refuses_unknown_values():

@@ -57,6 +57,17 @@ def test_backward_cost_is_pr3s_425_gflop():
     assert cost["gemm"] + cost["attention"] == pytest.approx(425.2e9, rel=1e-3)
 
 
+def test_backward_cost_splits_its_bytes():
+    """K4's parts at B=96: the projections read dout, dqkv and the weights
+    and write do and dx; the attention reads qkv, do and m, l and writes
+    dqkv. Together they move more than the block (do crosses twice)."""
+    M = 96 * 512
+    cost = smoke.block_cost(96, L, E, P, 2, "backward")
+    assert cost["gemm_bytes"] == (2 * M * 768 + 4 * M * 768) * 2 + 4 * 768 * 768 * 2
+    assert cost["attention_bytes"] == 7 * M * 768 * 2 + 2 * 96 * 12 * 512 * 4
+    assert cost["gemm_bytes"] + cost["attention_bytes"] > cost["bytes"]
+
+
 @pytest.mark.parametrize("flops,nbytes,peak,want", [
     # K1 at [8, 512, 768]: 25.8 GFLOP over 989 TFLOP/s beats 17.3 MB over 3.35 TB/s
     (25_769_803_776, 17_301_504, smoke.PEAK_BF16_FLOPS, (0.026056, "operations")),

@@ -190,14 +190,16 @@ def test_dropout_steps_reproducible_and_pooler_not_decayed(batches, jax_params):
 
 @pytest.mark.parametrize("section,key", [
     ("training_params", "training_dataset"), ("training_params", "model_axis"),
-    ("model_params", "num_token_vocab"),
+    ("model_params", "num_token_vocab"), ("training_params", "remat"),
 ])
 def test_not_yet_ported_raises(section, key, tmp_path):
     """What still waits raises: the multi-task head, a packed store
-    directory, more than one device. On-device masking and sequence
-    packing are ported and pass."""
+    directory, more than one device, remat (accepted and ignored would
+    keep the values but not the peak memory JAX's ``nn.remat`` gives).
+    On-device masking and sequence packing are ported and pass."""
     (tmp_path / "packed_meta.json").write_text("{}")
-    value = {"training_dataset": str(tmp_path), "model_axis": 2, "num_token_vocab": 8}[key]
+    value = {"training_dataset": str(tmp_path), "model_axis": 2, "num_token_vocab": 8,
+             "remat": True}[key]
     cfg = Config.from_dict({section: {key: value}})
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ts.check_ported(cfg)

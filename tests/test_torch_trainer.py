@@ -62,6 +62,23 @@ PACKED = dict(model={"attention_impl": "pallas", "dropout": 0.1},
               dataset={"ondevice_masking": True, "sequence_packing": True})
 
 
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
+def test_narrow_heads_train_on_the_eager_path(tmp_path, caplog, impl):
+    """12 heads of 32 (a shape the JAX Trainer trains through its XLA
+    fallback): the kernels do not take head_dim 32, so the model resolves
+    the eager path, logs why, and the Trainer takes a step with it."""
+    import logging
+
+    cfg = _write_config(tmp_path, num_steps=1, save_interval=1, model={
+        "hidden_size": 384, "num_attention_heads": 12, "attention_impl": impl})
+    with caplog.at_level(logging.WARNING, logger="pl_bert_tpu_torch.models.albert"):
+        assert _run(cfg, "narrow") == 1
+    assert any("falls back to the eager path" in r.message and "head_dim 32" in r.message
+               for r in caplog.records)
+    losses = [r["loss"] for r in _records(tmp_path, "narrow") if "loss" in r]
+    assert len(losses) == 1 and np.isfinite(losses[0])
+
+
 def test_six_steps_equal_three_plus_resume_plus_three(tmp_path, capsys):
     """On the packed, on-device-masked run on the flash path with
     dropout: parameters and AdamW moments of step 6 are bitwise those of
