@@ -34,13 +34,16 @@ with random weights made from a fixed seed, in order:
 9. holds the attention block's training forward (K3) against its plain
    version at [8, 512, 768] in bf16 and fp32 (output, qkv, context,
    softmax statistics), and checks the light forward (K1) returns K3's
-   output bitwise, with attention dropout 0 and 0.1; in bf16, the flash
+   output bitwise, with attention dropout 0 and 0.1; the flash
    backward's (K8's) recomputed row max and denominator on views of
-   K3's qkv must equal K3's saved ones bit for bit;
+   K3's qkv must equal K3's saved ones bit for bit (bf16: the tensor-core
+   kernels; fp32: the CUDA-core delta pass against the fp32 forward);
 10. holds its backward (K4) against the plain backward on the same saved
    tensors (dx, dW, db), dropout 0 and 0.1 — at 0.1 the plain version
    gets the mask the kernels' Philox code writes, which must equal the
-   plain Philox bit for bit;
+   plain Philox bit for bit; K4's ``do`` must equal the plain ``do`` bit
+   for bit in bf16, and its delta and ds scratch are held against their
+   plain versions fed K4's own ``do``;
 11. holds the fused LN backward (K6) against its plain version, dropout
    0 and 0.1 (the mask from the kernels' ``tl.rand``);
 12. checks the keep rate of every dropout site at the training shape
@@ -56,8 +59,9 @@ with random weights made from a fixed seed, in order:
    its two parts against their bounds), and holds each against
    its plain version there (K4 on K3's saved tensors, dropout 0.1 with
    the kernels' mask), as phases 9-11 do at B=8, K8's statistics bitwise
-   K3's there too, and splits K4 into its projections and its dq and
-   dk/dv kernels (``torch.profiler``). The B=8 comparison also
+   K3's there too, and splits K4 into its projections and its delta,
+   dk/dv and dq kernels (``torch.profiler``), each CUDA-core part beside
+   the products it forms at the fp32 rate. The B=8 comparison also
    runs the per-head flash path (``attention_impl: pallas``) against the
    plain path;
 14. holds the per-head flash attention kernels (K7 forward, K8 backward)
@@ -726,7 +730,12 @@ def bound_ms(flops: float, nbytes: float, flops_peak: float = PEAK_BF16_FLOPS):
 
 def block_cost(B, L, E, P, itemsize, kind="light") -> dict:
     """FLOPs and bytes of the attention block's kernels, ``kind`` "light"
-    (K1/K2), "train" (K3) or "backward" (K4), split into the projection
+    (K1/K2), "train" (K3), "backward" (K4) or "backward_simt" (K4, with
+    ``formed``: the products each of its CUDA-core kernels forms at
+    head_dim 64 -- do = dout·Woᵀ 2·M·E·P; the delta pass's q·k and do·vᵀ
+    4·M·L·P; the dk/dv kernel's q·k, do·vᵀ, pdᵀ·do and dsᵀ·q 8·M·L·P; dq =
+    ds·k 2·M·L·P: seven L²·D products a head where the gradient needs
+    five), split into the projection
     GEMMs and the attention pass. With M = B·L: forward GEMMs x·Wqkv and
     ctx·Wo, 8·M·E·P; attention q·k and p·v, 4·M·L·P. Backward GEMMs
     do = dout·Woᵀ and dx = dqkv·Wqkvᵀ, 8·M·E·P; attention q·k, do·v, pᵀ·do,
@@ -742,6 +751,11 @@ def block_cost(B, L, E, P, itemsize, kind="light") -> dict:
     M, H = B * L, P // 64
     weights = 4 * E * P * itemsize
     stats = 2 * B * H * L * 4
+    if kind == "backward_simt":
+        cost = block_cost(B, L, E, P, itemsize, "backward")
+        cost["formed"] = {"do": 2 * M * E * P, "delta": 4 * M * L * P, "dkdv": 8 * M * L * P,
+                          "dq": 2 * M * L * P}
+        return cost
     if kind == "backward":
         return {"gemm": 8 * M * E * P, "attention": 10 * M * L * P,
                 "bytes": 2 * M * (E + 3 * P) * itemsize + weights + stats,
@@ -763,9 +777,11 @@ def block_bound(cost: dict, flops_peak: float = PEAK_BF16_FLOPS):
 
 # the parts of a bf16 block or flash call: {part: (kernel name, launches a call)}
 FORWARD_PARTS = {"gemm": ("gemm_bias_sm90", 2), "attention": ("attention_fwd_sm90", 1)}
-# K4: do = dout·Woᵀ and the attention on the CUDA cores, dx on wgmma
+# K4: do = dout·Woᵀ and the attention (delta pass, dk/dv with the ds
+# scratch, dq = ds·k) on the CUDA cores, dx on wgmma
 BACKWARD_PARTS = {"do": ("gemm_bias<", 1), "dx": ("gemm_bias_sm90", 1),
-                  "dq": ("attention_bwd_dq", 1), "dkdv": ("attention_bwd_dkdv", 1)}
+                  "delta": ("attention_bwd_delta<", 1), "dkdv": ("attention_bwd_dkdv<", 1),
+                  "dq": ("attention_bwd_dq<", 1)}
 FLASH_BACKWARD_PARTS = {"dq": ("attention_bwd_dq_sm90", 1),
                         "dkdv": ("attention_bwd_dkdv_sm90", 1)}
 
@@ -799,16 +815,30 @@ def part_times(torch, fn, iters: int = 5, keys: dict = FORWARD_PARTS) -> dict:
 
 def log_parts(label: str, parts: dict, cost: dict) -> None:
     """Print each part's device time; then the projections (gemm, or do
-    and dx) and the attention (attention, or dq and dk/dv) each against
-    its own bound."""
+    and dx) and the attention (attention, or delta, dk/dv and dq) each
+    against its own bound. With a "backward_simt" cost, each CUDA-core
+    part of K4 also beside the products it forms at the fp32 rate, and the
+    attention beside the CUDA-core bound of the products it needs."""
     if set(parts) - {"gemm", "attention"}:
         log(f"  {label}: " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in parts.items()))
-    groups = {"gemm": ("gemm", "do", "dx"), "attention": ("attention", "dq", "dkdv")}
+    groups = {"gemm": ("gemm", "do", "dx"), "attention": ("attention", "delta", "dkdv", "dq")}
     for part, keys in groups.items():
         ms = sum(parts.get(k, 0.0) for k in keys)
         bound, by = bound_ms(cost[part], cost[f"{part}_bytes"])
         log(f"  {label} {part}: {ms:.4f} ms a call, bound {bound:.4f} ms ({by}; "
             f"{cost[part] / 1e9:.1f} GFLOP), {bound / ms if ms else 0:.1%} of it")
+    if "formed" not in cost:
+        return
+    for part, flops in cost["formed"].items():
+        ms = parts.get(part, 0.0)
+        bound = flops / PEAK_FP32_FLOPS * 1e3
+        log(f"  {label} {part} on the CUDA cores: {ms:.4f} ms, forms {flops / 1e9:.1f} GFLOP, "
+            f"{bound:.4f} ms at 67 TFLOP/s, {bound / ms if ms else 0:.1%} of it")
+    ms = sum(parts.get(k, 0.0) for k in groups["attention"])
+    bound, by = bound_ms(cost["attention"], cost["attention_bytes"], PEAK_FP32_FLOPS)
+    log(f"  {label} attention: {ms:.4f} ms a call, CUDA-core bound {bound:.4f} ms ({by}; the "
+        f"{cost['attention'] / 1e9:.1f} GFLOP it needs at 67 TFLOP/s), "
+        f"{bound / ms if ms else 0:.1%} of it")
 
 
 def hold_flash_stats(torch, saved, heads: int, bias_row, label: str) -> None:
@@ -832,6 +862,31 @@ def hold_flash_stats(torch, saved, heads: int, bias_row, label: str) -> None:
             f"K8's statistics differ from K3's ({label}): row max by "
             f"{float((m8 - m).abs().max()):.3e}, denominator by "
             f"{float((l8 - l).abs().max()):.3e}")
+
+
+def hold_k4_stages(torch, results, dout, wo, saved, heads, bias_row, rate, seed, keep, scratch,
+                   tag) -> None:
+    """K4's CUDA-core stages against their plain versions: ``do`` must be
+    the plain ``do`` bit for bit in bf16 (one fmaf chain an output over the
+    768 inputs in order, as cuBLAS fp32 sums them), delta (the delta pass)
+    and the ds scratch (the dk/dv kernel) are held fed K4's own ``do``
+    and delta."""
+    from pl_bert_tpu_torch.ops import attention_block as ab
+
+    do, delta, ds = scratch
+    B, _, L = delta.shape
+    plain_do = (dout.reshape(B * L, -1).float() @ wo.float().T).to(dout.dtype)
+    same = bool(torch.equal(do, plain_do))
+    share = float((do != plain_do).float().mean())
+    log(f"  K4 do == plain do bitwise ({tag}): {same} ({share:.2e} of the elements differ)")
+    if dout.dtype == torch.bfloat16 and not same:
+        raise AssertionError(f"K4's do is not the plain do bit for bit ({tag})")
+    args = (heads, bias_row, None, rate, seed, keep)
+    hold(results, "attention_block_bwd", f"K4 delta {tag}", delta,
+         ab.attention_delta_plain(do, saved, *args), TOL["float32"])
+    dname = str(dout.dtype).removeprefix("torch.")
+    hold(results, "attention_block_bwd", f"K4 ds {tag}", ds[:, :, :L, :L],
+         ab.attention_dkdv_plain(do, saved, delta, *args)[2], TOL[dname])
 
 
 def phase_train_kernels(torch, cfg, results: dict) -> None:
@@ -891,12 +946,15 @@ def phase_train_kernels(torch, cfg, results: dict) -> None:
                                ("denominator", saved[3], stats[1])]:
                 gate(f"K3 {name} {tag}", errors(a, r), TOL["float32"])
             log(f"  K1 output == K3 output bitwise ({tag})")
-            if dtype == torch.bfloat16:
-                hold_flash_stats(torch, saved, H, bias_row, f"[{B}, {L}, {E}] {tag}")
+            hold_flash_stats(torch, saved, H, bias_row, f"[{B}, {L}, {E}] {tag}")
 
-            dx, dqkv = ab.train_backward(dout, x, wqkv, wo, saved, H, bias_row, None, rate, seed)
+            dx, dqkv, (do, delta, ds) = ab._launch_bwd(dout, x, wqkv, wo, saved, H, bias_row,
+                                                       None, rate, seed, scratch=True)
             rdx, rdqkv = ab.train_backward_plain(dout, x, wqkv, wo, saved, H, bias_row, None,
                                                  rate, seed, keep=keep)
+            hold_k4_stages(torch, results, dout, wo, saved, H, bias_row, rate, seed, keep,
+                           (do, delta, ds), tag)
+            del do, delta, ds
             x2, d2 = x.reshape(B * L, E).float(), dout.reshape(B * L, E).float()
             grads = {"dx": (dx, rdx), "dqkv": (dqkv, rdqkv),
                      "dWqkv": (x2.T @ dqkv.float(), x2.T @ rdqkv.float()),
@@ -1081,7 +1139,7 @@ def phase_train(torch, results: dict) -> tuple[dict, dict, dict]:
         k4, iters=3,
     )
     log_parts(f"attention_block_bwd (K4) dropout {rate}", part_times(torch, k4, 3, BACKWARD_PARTS),
-              block_cost(B, L, E, E, 2, "backward"))
+              block_cost(B, L, E, E, 2, "backward_simt"))
     # the same calls held against each other at this shape, as phases 9-10
     # do at B=8: K3 (out, qkv, ctx, statistics), then K4 on K3's saved
     # tensors (dx, dqkv, and the fp32 weight and bias gradients)

@@ -29,27 +29,30 @@
 // 159-168). The training forward saves qkv, ctx and (m, l): the TPU's
 // q2/k2/v2/o2 and md [B,G,L,8].
 //
-// Backward, four launches:
-//   1. gemm (B^T):       do[M, P]   = dout[M, E] . Wo[P, E]^T          (:331-334)
-//   2. attention_bwd_dq: per query tile, pass 1 delta = sum_j dpd.pd, pass 2
-//                        dq = ds . k, with p = exp(s - m)/l recomputed from
-//                        the saved m and l (:350-354) and
-//                        ds = ((pd.dpd - p.delta) * scale) rounded (:372-373)
-//   3. attention_bwd_dkdv: per key tile, looping over the query tiles:
-//                        dv = pd^T . do (pd rounded), dk = ds^T . q; one
-//                        program owns each key tile, so no float atomics
-//                        and the sums are deterministic
-//   4. gemm (B^T):       dx[M, E]   = [dq|dk|dv][M, 3P] . [Wq|Wk|Wv]^T  (:389-401)
-// Launches 1-3 run on the CUDA cores in both types (gemm_bias, the SIMT
-// attention kernels); launch 4 runs on the tensor cores in bf16
-// (gemm_bias_sm90 reading Wqkv's transpose K-major). Moving 1-3 to the
-// tensor cores (the flash backward's wgmma kernels, K8) missed the bf16
-// gates: the plain backward forms s, do and the 512-deep sums in cuBLAS
-// fp32, which FMA chains reproduce bit for bit and tensor-core sums do
+// Backward, five launches (six at head_dim 128):
+//   1. gemm (B^T):          do[M, P] = dout[M, E] . Wo[P, E]^T          (:331-334)
+//   2. attention_bwd_delta: per query tile, delta = sum_j dpd.pd, with
+//                           p = exp(s - m)/l recomputed from the saved m
+//                           and l (:350-354); the dropout's keep bits,
+//                           drawn once here, written out for launch 3
+//   3. attention_bwd_dkdv:  per key tile, over the query tiles: dv = pd^T . do
+//                           (pd rounded), dk = ds^T . q with
+//                           ds = ((pd.dpd - p.delta) * scale) rounded
+//                           (:372-373), ds also written to a scratch
+//   4. attention_bwd_dq:    dq = ds . k from that scratch
+//   5. gemm (B^T):          dx[M, E] = [dq|dk|dv][M, 3P] . [Wq|Wk|Wv]^T (:389-401)
+// Launches 1-4 run on the CUDA cores in both types (gemm_bias and the SIMT
+// attention kernels, all on attention_tiles.cuh's register-blocked
+// fma_tile); launch 5 runs on the tensor cores in bf16 (gemm_bias_sm90
+// reading Wqkv's transpose K-major). Moving 1-4 to the tensor cores (the
+// flash backward's wgmma kernels, K8) missed the bf16 gates: the plain
+// backward forms s, do and the 512-deep sums in cuBLAS fp32, which FMA
+// chains in ascending order reproduce bit for bit and tensor-core sums do
 // not; their one-ulp flips in do and dqkv fan out through the 512-deep and
 // 2304-deep sums into dx, where one bf16 ulp is 0.125 (|dx| up to 39 on
 // padded rows, measured on the card; PERF.md). The last GEMM's own flips
-// stay single.
+// stay single. So the CUDA-core kernels keep every sum's order: each output
+// one fmaf chain from 0, ascending.
 // The weight and bias gradients stay outside, as plain matmuls and sums
 // (:626-637).
 //
@@ -69,9 +72,11 @@
 // TMA and never converted in shared memory, q.k recomputed in the
 // attention's second pass rather than an [L, L] tile stored. The bf16
 // backward (K4) keeps its attention and do = dout . Wo^T on the CUDA cores
-// (see above), so it runs far above its bound. The bf16 kernels take row
-// strides and bases that are multiples of 16 bytes (E a multiple of 8);
-// the wrapper refuses other shapes.
+// (see above), so the fp32 rate (67 TFLOP/s) bounds it: it forms 7 L^2 D
+// products of attention where the gradient needs 5, and ds makes one round
+// trip through memory. The bf16 kernels take row strides and bases that are
+// multiples of 16 bytes (E a multiple of 8); the wrapper refuses other
+// shapes.
 
 #include "attention_tiles.cuh"
 #include "gemm_sm90.cuh"
@@ -79,25 +84,46 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// C[M, N] = A[M, K] . op(B) (+ bias[N]) on the CUDA cores: the fp32
-// forward's and backward's (TB) projections. op(B) = B[K, N]
-// row-major, or with TB the transpose of B[N, K] row-major. fp32
-// accumulation, the bias added in fp32 before the one rounding to T. A
-// 128x128 tile per block, 16 deep; each of 256 threads holds 8x8 outputs
-// at rows ty + 16i and columns
-// tx + 16j, so shared-memory reads are broadcast or conflict-free and
-// global stores are 16 consecutive elements.
-constexpr int GBM = 128, GBN = 128, GBK = 16, GTHREADS = 256;
+// C[M, N] = A[M, K] . op(B) (+ bias[N]) on the CUDA cores: the backward's
+// do = dout . Wo^T in both types (TB), and the fp32 projections. op(B) =
+// B[K, N] row-major, or with TB the transpose of B[N, K] row-major. A
+// 128 x 128 tile per block of 256 threads, 16 deep, in fma_tile
+// (attention_tiles.cuh): thread (ty, tx) owns rows 4ty..4ty+3 and
+// 64+4ty..64+4ty+3 and columns 4tx..4tx+3 and 64+4tx..64+4tx+3, reading
+// each k's A and B values as float4 from k-major tiles (64 FMAs for 4
+// shared loads). The tiles are filled in 16-byte chunks (A, and B with TB,
+// transposed on the store; B without TB straight, by cp.async in fp32) into
+// two buffers, the next k step's in flight while this one is multiplied.
+// Each output is one fmaf chain over k = 0..K-1 in order, the bias added in
+// fp32 after it and before the one rounding to T: the bits of cuBLAS's fp32
+// GEMM on the card (PERF.md).
+constexpr int GBM = 128, GBN = 128, GBK = 16, GTHREADS = 256, GLD = GBM + 4;
 
 template <typename T, bool TB>
 __global__ void __launch_bounds__(GTHREADS)
 gemm_bias(const T* __restrict__ A, const T* __restrict__ B,
           const float* __restrict__ bias, T* __restrict__ C,
           int M, int N, int K) {
-  __shared__ float As[GBK][GBM + 4];  // transposed: As[k][m]
-  __shared__ float Bs[GBK][GBN + 4];
+  __shared__ __align__(16) float As[2][GBK * GLD];  // [k][m]
+  __shared__ __align__(16) float Bs[2][GBK * GLD];  // [k][n]
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
+  constexpr int W = kChunk<T>;
+  const bool va = K % W == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0;
+  const bool vb = (TB ? K : N) % W == 0 && reinterpret_cast<uintptr_t>(B) % 16 == 0;
+  TileFill<T, GBM, GBK, GTHREADS, true> fa;
+  TileFill<T, TB ? GBN : GBK, TB ? GBK : GBN, GTHREADS, TB> fb;
+  auto load = [&](int k0, int s) {
+    fa.load(A + (size_t)m0 * K + k0, K, M - m0, K - k0, va, As[s], GLD);
+    if (TB)
+      fb.load(B + (size_t)n0 * K + k0, K, N - n0, K - k0, vb, Bs[s], GLD);
+    else
+      fb.load(B + (size_t)k0 * N + n0, N, K - k0, N - n0, vb, Bs[s], GLD);
+  };
+  auto store = [&](int s) {
+    fa.store(As[s], GLD);
+    fb.store(Bs[s], GLD);
+  };
 
   float acc[8][8];
 #pragma unroll
@@ -105,49 +131,25 @@ gemm_bias(const T* __restrict__ A, const T* __restrict__ B,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += GBK) {
-    for (int i = tid; i < GBM * GBK; i += GTHREADS) {
-      const int m = i / GBK, k = i % GBK;
-      const int gm = m0 + m, gk = k0 + k;
-      As[k][m] = (gm < M && gk < K) ? to_f(A[(size_t)gm * K + gk]) : 0.f;
-    }
-    for (int i = tid; i < GBK * GBN; i += GTHREADS) {
-      int k, n;
-      if (TB) {  // consecutive threads walk B's rows, which are contiguous in k
-        n = i / GBK;
-        k = i % GBK;
-      } else {
-        k = i / GBN;
-        n = i % GBN;
-      }
-      const int gk = k0 + k, gn = n0 + n;
-      float v = 0.f;
-      if (gk < K && gn < N) v = to_f(TB ? B[(size_t)gn * K + gk] : B[(size_t)gk * N + gn]);
-      Bs[k][n] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < GBK; ++k) {
-      float a[8], b[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
+  const int nk = (K + GBK - 1) / GBK;
+  load(0, 0);
+  store(0);
+  __syncthreads();
+  for (int t = 0; t < nk; ++t) {
+    const int s = t & 1;
+    if (t + 1 < nk) load((t + 1) * GBK, s ^ 1);
+    fma_tile<8, false, GBK>(acc, As[s], GLD, 4 * ty, 64, Bs[s], GLD, 4 * tx, 64);
+    if (t + 1 < nk) store(s ^ 1);
     __syncthreads();
   }
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + ty + 16 * i;
+    const int gm = m0 + 4 * ty + (i & 3) + 64 * (i >> 2);
     if (gm >= M) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int gn = n0 + tx + 16 * j;
+      const int gn = n0 + 4 * tx + (j & 3) + 64 * (j >> 2);
       if (gn < N) C[(size_t)gm * N + gn] = from_f<T>(acc[i][j] + (bias ? bias[gn] : 0.f));
     }
   }
@@ -207,8 +209,9 @@ cudaError_t run_fwd(const void* x, const void* wqkv, const void* bqkv, const voi
 template <typename T, int D>
 cudaError_t run_bwd(const void* dout, const void* wqkv, const void* wo, const void* qkv,
                     const void* stat_m, const void* stat_l, const void* bias_row,
-                    const void* seg_row, void* dO, void* delta, void* dqkv, void* dx, int B,
-                    int L, int E, int P, int H, Dropout drop, cudaStream_t stream) {
+                    const void* seg_row, void* dO, void* delta, void* ds, void* keep_bits,
+                    void* dqkv, void* dx, int B, int L, int E, int P, int H, Dropout drop,
+                    cudaStream_t stream) {
   const int M = B * L;
   cudaError_t err = launch_gemm<T, true>(dout, wo, nullptr, dO, M, P, E, stream);
   if (err != cudaSuccess) return err;
@@ -222,7 +225,7 @@ cudaError_t run_bwd(const void* dout, const void* wqkv, const void* wo, const vo
       const_cast<float*>(static_cast<const float*>(stat_l)), static_cast<float*>(delta),
       static_cast<const float*>(bias_row), static_cast<const float*>(seg_row),
       Rows<T>{dsec, 3 * P}, Rows<T>{dsec + P, 3 * P}, Rows<T>{dsec + 2 * P, 3 * P},
-      B, L, H, drop, stream);
+      static_cast<T*>(ds), static_cast<uint64_t*>(keep_bits), B, L, H, drop, stream);
   if (err != cudaSuccess) return err;
   return launch_proj<T, true>(dqkv, wqkv, nullptr, dx, M, E, 3 * P, stream);
 }
@@ -272,34 +275,28 @@ extern "C" int plbt_attention_block_fwd(
 // The backward of the training forward. dout [B*L, E], wqkv [E, 3P],
 // wo [P, E], qkv [B*L, 3P] (saved) in the compute type; stat_m/stat_l
 // [B, H, L] fp32 (saved); bias_row/seg_row and the dropout as in the
-// forward. Scratch: dO [B*L, P] of the compute type, delta [B, H, L] fp32.
-// Writes dqkv [B*L, 3P] (= [dq|dk|dv], the compute type) and dx [B*L, E].
+// forward. Scratch: dO [B*L, P] and ds [B, H, Lp, Lp] (Lp = L rounded up
+// to a multiple of 64) of the compute type, delta [B, H, L] fp32, and with
+// dropout keep_bits [B, H, Lp, Lp/64] 64-bit words (else NULL). Writes
+// dqkv [B*L, 3P] (= [dq|dk|dv], the compute type) and dx [B*L, E].
 extern "C" int plbt_attention_block_bwd(
     const void* dout, const void* wqkv, const void* wo, const void* qkv, const void* stat_m,
     const void* stat_l, const void* bias_row, const void* seg_row, void* dO, void* delta,
-    void* dqkv, void* dx, int B, int L, int E, int P, int H, int dtype, int dropout,
-    unsigned int seed, unsigned int thresh, float inv_keep, void* stream) {
+    void* ds, void* keep_bits, void* dqkv, void* dx, int B, int L, int E, int P, int H,
+    int dtype, int dropout, unsigned int seed, unsigned int thresh, float inv_keep,
+    void* stream) {
   if (!shape_ok(B, L, E, P, H)) return -1;
   const Dropout drop = make_dropout(dropout, seed, thresh, inv_keep);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto bwd) {
+    return static_cast<int>(bwd(dout, wqkv, wo, qkv, stat_m, stat_l, bias_row, seg_row, dO,
+                                delta, ds, keep_bits, dqkv, dx, B, L, E, P, H, drop, st));
+  };
   const bool d64 = P / H == 64;
-  cudaError_t err;
-  if (dtype == 0) {
-    err = d64 ? run_bwd<float, 64>(dout, wqkv, wo, qkv, stat_m, stat_l, bias_row, seg_row, dO,
-                                   delta, dqkv, dx, B, L, E, P, H, drop, st)
-              : run_bwd<float, 128>(dout, wqkv, wo, qkv, stat_m, stat_l, bias_row, seg_row,
-                                    dO, delta, dqkv, dx, B, L, E, P, H, drop, st);
-  } else if (dtype == 1) {
-    err = d64 ? run_bwd<__nv_bfloat16, 64>(dout, wqkv, wo, qkv, stat_m, stat_l, bias_row,
-                                           seg_row, dO, delta, dqkv, dx, B, L, E, P, H, drop,
-                                           st)
-              : run_bwd<__nv_bfloat16, 128>(dout, wqkv, wo, qkv, stat_m, stat_l, bias_row,
-                                            seg_row, dO, delta, dqkv, dx, B, L, E, P, H, drop,
-                                            st);
-  } else {
-    return -1;
-  }
-  return static_cast<int>(err);
+  if (dtype == 0) return run(d64 ? run_bwd<float, 64> : run_bwd<float, 128>);
+  if (dtype == 1)
+    return run(d64 ? run_bwd<__nv_bfloat16, 64> : run_bwd<__nv_bfloat16, 128>);
+  return -1;
 }
 
 // C[M, N] = A[M, K] . B[N, K]^T in bf16 on the tensor cores: the backward's

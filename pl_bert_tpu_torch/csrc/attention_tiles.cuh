@@ -9,10 +9,12 @@
 //   attention_bwd_dkdv_sm90  bf16 dv = pd^T . do and dk = ds^T . q, per key
 //                            tile, on the tensor cores
 //                            (the flash backward K8 in bf16)
-//   attention_fwd, attention_bwd_dq, attention_bwd_dkdv
-//                            the same three on the CUDA cores: fp32 (where
-//                            tensor cores would mean TF32), and the block
-//                            backward K4 in bf16 too
+//   attention_fwd            the forward on the CUDA cores in fp32 (where
+//                            tensor cores would mean TF32)
+//   attention_bwd_delta, attention_bwd_dkdv, attention_bwd_dq
+//                            the backward on the CUDA cores: fp32, and the
+//                            block backward K4 in bf16 too (a delta pass,
+//                            dk/dv writing ds to a scratch, dq = ds . k)
 // Each takes q, k, v (and do, and the outputs) as Rows: a base pointer and
 // the distance between rows, so the same kernel reads the three sections of
 // the block's qkv [B*L, 3P] buffer or three separate [B, L, H, D] tensors
@@ -22,9 +24,10 @@
 // probabilities are rounded to the compute type T before p.v, and ds before
 // ds.k and ds^T.q, where the TPU kernels round them
 // (pl_bert_tpu/ops/attention_block.py:128-139, :372-373;
-// pl_bert_tpu/ops/flash_attention.py:65-69, :110). Every kernel makes two
+// pl_bert_tpu/ops/flash_attention.py:65-69, :110). Every forward makes two
 // passes over the key tiles (m and l, then the normalised p), recomputing
-// q.k rather than storing an [L, L] tile; scores never leave the chip.
+// q.k rather than storing an [L, L] tile; scores never leave the chip (the
+// CUDA-core backward stores only the rounded ds, once).
 //
 // What bounds the bf16 forward: at [8, 512, 12, 64] its q.k and p.v are
 // 6.4 GFLOP (9.7 with q.k formed again in pass 2) against 25 MB of q, k, v
@@ -60,7 +63,8 @@
 // same TMA tile. The block backward (K4) keeps the CUDA-core kernels in
 // bf16 as well (attention_block.cu says why): its scores are FMA chains
 // over d, which match the plain version's cuBLAS fp32 scores, not the
-// bf16 forward's tensor-core ones.
+// bf16 forward's tensor-core ones. Those kernels, and what bounds them,
+// are described where they begin, below.
 
 #pragma once
 
@@ -151,61 +155,247 @@ struct Rows {
   }
 };
 
+// 64-row query and key tiles (the tensor-core kernels' too)
+constexpr int AQ = 64, AK = 64;
+
 // ---------------------------------------------------------------------------
-// Attention tiles: 64 query rows x 64 key columns, 256 threads. Thread
-// (ty, tx) owns rows 4ty..4ty+3 of a tile and columns tx + 16j (j < 4); a
-// row's 64 entries are spread over the 16 lanes of one half-warp, which
-// reduce row sums with shuffles. Any L: key columns past L score -inf (they
-// do not exist), query rows past L are computed and not stored.
-constexpr int AQ = 64, AK = 64, ATHREADS = 256;
+// The CUDA-core (SIMT) kernels: fp32 (K2, and K3/K7/K8 in fp32, where tensor
+// cores would mean TF32), and the block backward K4 in bf16 too.
+//
+// Every product they form, and the projection GEMM of attention_block.cu,
+// runs in one register-blocked micro-tile, fma_tile: a thread owns 8 rows x
+// TN columns of outputs and, for each k, reads its 8 rows' A values as two
+// float4 and its columns' B values as float4 from fp32 tiles in shared
+// memory, then issues 8*TN fmaf -- 32 or 64 FMAs for 3 or 4 shared loads,
+// where the scalar 4x4 tiles before it issued 16 for 8. Each output stays
+// one fmaf chain over k in ascending order, started from 0, so the bits are
+// those of a sequential fp32 dot product (which is what the plain versions'
+// cuBLAS fp32 sums give on the card) whatever thread owns it.
+//
+// Tiles are 64 x 64 for 128 threads: thread (ty = tid/16, tx = tid%16) owns
+// rows 4ty..4ty+3 and 32+4ty..32+4ty+3 (trow) and, of a score tile, the
+// columns tx + 16j, j < 4 (tcol): a row's 64 scores sit on the 16 lanes of
+// one half-warp, which reduce row sums with shuffles; of a D-wide output, the
+// columns 4tx..4tx+3 (and 64+4tx.. at D = 128). The operands live in fp32:
+// tiles that sum over the head dimension are held transposed (k-major,
+// [D][64]) on one side and row by row ([64][D+4]) on the other; tiles that
+// sum over rows are k-major as they come. Fills read 16-byte chunks:
+// cp.async straight into shared memory for fp32, or 8 bf16 values held in
+// registers and converted once at the store (TileFill), so the next tile's
+// reads are in flight while this one is multiplied.
+constexpr int ST = 128;   // threads of a SIMT attention block
+constexpr int PLD = 68;   // row distance of the [64][64] probability and ds tiles
 
-// Loads rows r0..r0+63 of one head (base points at the batch item's row 0,
-// the head's column 0; rows are ld apart) as fp32 into dst[64][D+1]; rows
-// past L are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* base, int ld, int r0, int L) {
-  for (int i = threadIdx.x; i < 64 * D; i += ATHREADS) {
-    const int r = i / D, d = i % D, g = r0 + r;
-    dst[r * (D + 1) + d] = g < L ? to_f(base[(size_t)g * ld + d]) : 0.f;
-  }
+template <typename T>
+constexpr int kChunk = 16 / (int)sizeof(T);  // elements of T in 16 bytes
+
+__device__ __forceinline__ int trow(int ty, int i) { return 4 * ty + (i & 3) + 32 * (i >> 2); }
+__device__ __forceinline__ int tcol(int tx, int j) { return tx + 16 * j; }
+
+__device__ __forceinline__ void cp_async16(float* dst, const void* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// The padding bias and segment id of rows r0..r0+63 of batch item b; 0 past L
-// and where the caller has none.
-__device__ __forceinline__ void load_row_info(float* rbias, float* rseg,
-                                              const float* __restrict__ bias_row,
-                                              const float* __restrict__ seg_row, int b, int r0,
-                                              int L) {
-  if (threadIdx.x < 64) {
-    const int r = r0 + threadIdx.x;
-    if (rbias) rbias[threadIdx.x] = (r < L && bias_row) ? bias_row[(size_t)b * L + r] : 0.f;
-    rseg[threadIdx.x] = (r < L && seg_row) ? seg_row[(size_t)b * L + r] : 0.f;
-  }
+// the 16 bytes of a chunk of T as its kChunk<T> fp32 values (exact)
+__device__ __forceinline__ void unpack(const uint4& u, float* v, float) {
+  v[0] = __uint_as_float(u.x);
+  v[1] = __uint_as_float(u.y);
+  v[2] = __uint_as_float(u.z);
+  v[3] = __uint_as_float(u.w);
 }
-
-// s[i][j] = sum_d A[4ty+i][d] * Bm[tx+16j][d], the products added in
-// order d = 0..D-1 with fmaf: the CUDA-core kernels below compute q.k this
-// way, so the fp32 backward reproduces the fp32 forward's scores bitwise
-// (K4's bf16 backward matches the bf16 forward's to fp32 rounding).
-template <int D>
-__device__ __forceinline__ void dot_tile(const float* A, const float* Bm, int tx, int ty,
-                                         float (&s)[4][4]) {
+__device__ __forceinline__ void unpack(const uint4& u, float* v, __nv_bfloat16) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// kChunk<T> values of src, n of them valid (the rest read as 0): one
+// 16-byte load where all are and vec says src is 16-byte aligned
+template <typename T>
+__device__ __forceinline__ uint4 load_chunk(const T* src, int n, bool vec) {
+  constexpr int W = kChunk<T>;
+  if (vec && n >= W) return __ldg(reinterpret_cast<const uint4*>(src));
+  using Raw = typename std::conditional<sizeof(T) == 2, uint16_t, uint32_t>::type;
+  union {
+    uint4 u;
+    Raw e[W];
+  } c;
+  c.u = make_uint4(0u, 0u, 0u, 0u);
+  const Raw* s = reinterpret_cast<const Raw*>(src);
+#pragma unroll
+  for (int e = 0; e < W; ++e)
+    if (e < n) c.e[e] = s[e];
+  return c.u;
+}
+
+// 16 bytes of T at dst from kChunk<T> fp32 values already exact in T
+__device__ __forceinline__ void store_chunk(float* dst, const float* v) {
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(v);
+}
+__device__ __forceinline__ void store_chunk(__nv_bfloat16* dst, const float* v) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 pair = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&pair);
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Fills a ROWS x COLS fp32 tile in shared memory from rows of T that are ld
+// elements apart: straight (dst[r * ldd + c]) or TRANS (dst[c * ldd + r]);
+// elements past `rows` rows or `cols` columns are 0. load() starts the
+// reads -- cp.async into dst for a straight fp32 tile, else 16-byte loads
+// into registers -- and store() writes what load() holds, converted once,
+// then waits for the cp.async copies. vec: src and ld keep every chunk
+// 16-byte aligned; else the elements are read one by one. Consecutive
+// threads take consecutive chunks of a row (straight) or the same chunk of
+// consecutive rows (TRANS), so the shared-memory stores meet no conflict.
+template <typename T, int ROWS, int COLS, int THREADS, bool TRANS>
+struct TileFill {
+  static constexpr int W = kChunk<T>, CPR = COLS / W, N = ROWS * CPR / THREADS;
+  static constexpr bool kAsync = !TRANS && std::is_same<T, float>::value;
+  static_assert(COLS % W == 0 && ROWS * CPR % THREADS == 0, "a tile of whole chunks");
+  uint4 u[kAsync ? 1 : N];
+
+  __device__ __forceinline__ static void at(int t, int& r, int& c) {
+    const int i = threadIdx.x + THREADS * t;
+    if (TRANS) {
+      r = i % ROWS;
+      c = i / ROWS;
+    } else {
+      r = i / CPR;
+      c = i % CPR;
+    }
+  }
+  __device__ __forceinline__ void put(const uint4& v, float* dst, int ldd, int r, int c) const {
+    float f[W];
+    unpack(v, f, T());
+    if (TRANS) {
+#pragma unroll
+      for (int e = 0; e < W; ++e) dst[(c * W + e) * ldd + r] = f[e];
+    } else {
+#pragma unroll
+      for (int e = 0; e < W; e += 4) store_chunk(dst + r * ldd + c * W + e, f + e);
+    }
+  }
+  __device__ __forceinline__ void load(const T* src, size_t ld, int rows, int cols, bool vec,
+                                       float* dst, int ldd) {
+#pragma unroll
+    for (int t = 0; t < N; ++t) {
+      int r, c;
+      at(t, r, c);
+      const int n = r < rows ? cols - c * W : 0;
+      const T* p = src + (size_t)r * ld + c * W;
+      if constexpr (kAsync) {
+        if (vec)
+          cp_async16(dst + r * ldd + c * W, n > 0 ? p : src, n >= W ? 16 : (n > 0 ? 4 * n : 0));
+        else
+          put(load_chunk<T>(p, n, false), dst, ldd, r, c);
+      } else {
+        u[t] = load_chunk<T>(p, n, vec);
+      }
+    }
+    if constexpr (kAsync) cp_async_commit();
+  }
+  __device__ __forceinline__ void store(float* dst, int ldd) const {
+    if constexpr (kAsync) {
+      cp_async_wait_all();
+    } else {
+#pragma unroll
+      for (int t = 0; t < N; ++t) {
+        int r, c;
+        at(t, r, c);
+        put(u[t], dst, ldd, r, c);
+      }
+    }
+  }
+};
+
+// whether the chunks of a Rows are 16-byte aligned (every head's columns
+// start at a multiple of D, itself a multiple of 8)
+template <typename T>
+__host__ __device__ inline bool rows_vec(Rows<const T> r) {
+  return r.ld % kChunk<T> == 0 && reinterpret_cast<uintptr_t>(r.ptr) % 16 == 0;
+}
+
+__device__ __forceinline__ float lane(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// The micro-tile: acc[i][j] += sum_k A(row i, k) * B(col j, k) over
+// k = 0..KT-1 in ascending order, one fmaf a product. A is k-major
+// (A[k * lda + row]); the thread's rows are ar..ar+3 and ar+ah..ar+ah+3,
+// read as two float4 a k. B is k-major (B[k * ldb + col]) with columns
+// bc..bc+3, and bc+bh..bc+bh+3 when TN is 8, read as float4; or, with
+// BROWS, row by row (B[col * ldb + k]) with the TN = 4 columns bc + bh*j,
+// each read as a float4 of four consecutive k.
+template <int TN, bool BROWS, int KT>
+__device__ __forceinline__ void fma_tile(float (&acc)[8][TN], const float* __restrict__ A,
+                                         int lda, int ar, int ah, const float* __restrict__ B,
+                                         int ldb, int bc, int bh) {
+  static_assert(KT % 4 == 0 && (BROWS ? TN == 4 : (TN == 4 || TN == 8)), "micro-tile shape");
+#pragma unroll 2
+  for (int k0 = 0; k0 < KT; k0 += 4) {
+    float4 bq[BROWS ? 4 : 1];
+    if constexpr (BROWS) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        bq[j] = *reinterpret_cast<const float4*>(B + (bc + bh * j) * ldb + k0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float* ak = A + (k0 + kk) * lda;
+      const float4 a0 = *reinterpret_cast<const float4*>(ak + ar);
+      const float4 a1 = *reinterpret_cast<const float4*>(ak + ar + ah);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float b[TN];
+      if constexpr (BROWS) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = lane(bq[j], kk);
+      } else {
+        const float* bk = B + (k0 + kk) * ldb;
+#pragma unroll
+        for (int h = 0; h < TN / 4; ++h) {
+          const float4 bv = *reinterpret_cast<const float4*>(bk + bc + bh * h);
+          b[4 * h] = bv.x;
+          b[4 * h + 1] = bv.y;
+          b[4 * h + 2] = bv.z;
+          b[4 * h + 3] = bv.w;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+}
+
+// The thread's 8 x 4 raw scores of a 64 x 64 tile: rows of At (k-major
+// [D][64]) against the columns of Bs (row by row, [64][D+4]), summed over d
+// in order. The forward and every backward kernel form q.k here, so the fp32
+// backward's scores are the fp32 forward's bit for bit (the product is
+// q*k in one kernel and k*q in another, the same fmaf).
+template <int D>
+__device__ __forceinline__ void dot_block(float (&s)[8][4], const float* At, const float* Bs,
+                                          int tx, int ty) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(4 * ty + i) * (D + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = Bm[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-  }
+  fma_tile<4, true, D>(s, At, 64, 4 * ty, 32, Bs, D + 4, tx, 16);
 }
 
 // The score of query q against key k from the raw product: scaled, the
@@ -216,25 +406,6 @@ __device__ __forceinline__ float score(float qk, float scale, float kbias, bool 
   if (use_seg && qseg != kseg) v = kNeg;
   if (k >= L) v = -CUDART_INF_F;
   return v;
-}
-
-// o[i][c] += sum_k P[4ty+i][k] * V[k][tx+16c] over a 64-wide tile; P has
-// row stride 65, V row stride D+1.
-template <int D>
-__device__ __forceinline__ void pv_tile(const float* Pm, const float* V, int tx, int ty,
-                                        float (&o)[4][D / 16]) {
-#pragma unroll 4
-  for (int k = 0; k < 64; ++k) {
-    float pv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pv[i] = Pm[(4 * ty + i) * 65 + k];
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      const float vv = V[k * (D + 1) + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) o[i][c] = fmaf(pv[i], vv, o[i][c]);
-    }
-  }
 }
 
 __device__ __forceinline__ float half_warp_sum(float v) {
@@ -249,140 +420,162 @@ __device__ __forceinline__ float half_warp_max(float v) {
   return v;
 }
 
-// The scores of the query tile in Qs against key tile k0: loads the key
-// rows, their bias and segments, synchronises (so whatever else the caller
-// loaded for this tile is visible too), and leaves this thread's 4x4
-// scores in s. The caller synchronises before it, after the previous
-// tile's reads.
-template <typename T, int D>
-__device__ __forceinline__ void key_tile_scores(
-    const float* Qs, float* Ks, float* kbias, float* kseg, const float* qseg, const T* kbase,
-    int ldk, const float* __restrict__ bias_row, const float* __restrict__ seg_row, int b,
-    int k0, int L, float scale, float (&s)[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const bool use_seg = seg_row != nullptr;
-  load_tile<T, D>(Ks, kbase, ldk, k0, L);
-  load_row_info(kbias, kseg, bias_row, seg_row, b, k0, L);
-  __syncthreads();
-  dot_tile<D>(Qs, Ks, tx, ty, s);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      s[i][j] = score(s[i][j], scale, kbias[c], use_seg, qseg[4 * ty + i], kseg[c], k0 + c, L);
-    }
+// The padding bias and segment id of rows r0..r0+63 of batch item b into
+// bias/seg (either may be null); 0 past L and where the caller has none.
+__device__ __forceinline__ void load_row_info(float* bias, float* seg,
+                                              const float* __restrict__ bias_row,
+                                              const float* __restrict__ seg_row, int b, int r0,
+                                              int L) {
+  if (threadIdx.x < 64) {
+    const int r = r0 + threadIdx.x;
+    if (bias) bias[threadIdx.x] = (r < L && bias_row) ? bias_row[(size_t)b * L + r] : 0.f;
+    if (seg) seg[threadIdx.x] = (r < L && seg_row) ? seg_row[(size_t)b * L + r] : 0.f;
+  }
 }
 
-// The row max m and the denominator l = sum exp(s - m) of this thread's four
-// query rows over all keys, kept online in fp32. The fp32 forward's first
-// pass, and the first pass of a backward that was handed no statistics: the
-// same code, so in fp32 both get the same bits.
-template <typename T, int D>
-__device__ __forceinline__ void row_stats(
-    const float* Qs, float* Ks, float* kbias, float* kseg, const float* qseg, const T* kbase,
-    int ldk, const float* __restrict__ bias_row, const float* __restrict__ seg_row, int b,
-    int L, float scale, float (&m_run)[4], float (&l_run)[4]) {
+// One key tile's step of the online row max m and denominator
+// l = sum exp(s - m) of the thread's 8 query rows, in fp32: the fp32
+// forward's first pass and the statistics pass of a backward that was
+// handed none -- the same code, so in fp32 both get the same bits.
+__device__ __forceinline__ void stats_step(const float (&s)[8][4], float (&m_run)[8],
+                                           float (&l_run)[8]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = -CUDART_INF_F;
-    l_run[i] = 0.f;
+  for (int i = 0; i < 8; ++i) {
+    const float mx = half_warp_max(fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3])));
+    // column 0 of the first tile is always a real key, so m_new is finite
+    // and exp(-inf - m_new) is 0, never exp(-inf + inf)
+    const float m_new = fmaxf(m_run[i], mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sum += expf(s[i][j] - m_new);
+    l_run[i] = l_run[i] * expf(m_run[i] - m_new) + half_warp_sum(sum);
+    m_run[i] = m_new;
   }
-  for (int k0 = 0; k0 < L; k0 += AK) {
-    float s[4][4];
-    __syncthreads();  // the previous tile's reads are done
-    key_tile_scores<T, D>(Qs, Ks, kbias, kseg, qseg, kbase, ldk, bias_row, seg_row, b, k0, L,
-                          scale, s);
+}
+
+// writes the thread's 8 x 4 block v (rows trow, columns tcol of a score
+// tile) to dst[col * PLD + row], k-major for a product that sums over the
+// columns: two float4 a column
+__device__ __forceinline__ void put_transposed(float* dst, const float (&v)[8][4], int tx,
+                                               int ty) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float mx =
-          half_warp_max(fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3])));
-      // column 0 of the first tile is always a real key, so m_new is
-      // finite and exp(-inf - m_new) is 0, never exp(-inf + inf)
-      const float m_new = fmaxf(m_run[i], mx);
-      float sum = 0.f;
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sum += expf(s[i][j] - m_new);
-      l_run[i] = l_run[i] * expf(m_run[i] - m_new) + half_warp_sum(sum);
-      m_run[i] = m_new;
-    }
-  }
+    for (int g = 0; g < 2; ++g)
+      *reinterpret_cast<float4*>(dst + tcol(tx, j) * PLD + 4 * ty + 32 * g) =
+          make_float4(v[4 * g][j], v[4 * g + 1][j], v[4 * g + 2][j], v[4 * g + 3][j]);
 }
 
 template <int D>
 constexpr size_t fwd_smem_floats() {
-  return 3 * AQ * (D + 1) + AQ * 65 + 3 * AK;
+  return D * 64 + 4 * 64 * (D + 4) + 64 * PLD + 5 * 64;
 }
 
-// fp32 (K2, and K3/K7 in fp32) on the CUDA cores, where tensor cores would
-// mean TF32 and about three decimal digits. One block per (64-row query
-// tile, head, batch item), two passes over the key tiles:
-//   pass 1: the row max m and the denominator l (row_stats);
-//   pass 2: p = exp(s - m) / l, dropped out, rounded to T as the TPU kernel
-//           rounds its probabilities before p.v, and o += p . v.
+// fp32 (K2, and K3/K7 in fp32) on the CUDA cores. One block of 128 threads
+// per (64-row query tile, head, batch item); Q^T is filled once, and the
+// key side is a sequence of 2n tile loads through two buffers (load i into
+// buffer i % 2, the next one in flight while this one is used):
+//   pass 1 (K tiles): the row max m and the denominator l (stats_step);
+//   pass 2 (K and V tiles): p = exp(s - m) / l, dropped out, rounded to T
+//     as the TPU kernel rounds its probabilities before p.v, written to
+//     shared memory k-major, and o += p . v in the micro-tile.
 // With stat_m/stat_l (the block's training forward) m and l are saved
 // [B, H, L]; the flash forward saves nothing.
 template <typename T, int D>
-__global__ void __launch_bounds__(ATHREADS)
+__global__ void __launch_bounds__(ST)
 attention_fwd(Rows<const T> q, Rows<const T> k, Rows<const T> v,
               const float* __restrict__ bias_row, const float* __restrict__ seg_row,
               Rows<T> o, float* __restrict__ stat_m, float* __restrict__ stat_l,
               int L, float scale, Dropout drop) {
-  constexpr int DC = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + AQ * (D + 1);
-  float* Vs = Ks + AK * (D + 1);
-  float* Ps = Vs + AK * (D + 1);
-  float* kbias = Ps + AQ * 65;
-  float* kseg = kbias + AK;
-  float* qseg = kseg + AK;
+  constexpr int RL = D + 4, TN = D / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* Qt = smem;                 // [D][64]
+  float* Ks = Qt + D * 64;          // [2][64][RL]
+  float* Vs = Ks + 2 * 64 * RL;     // [2][64][RL]
+  float* Pt = Vs + 2 * 64 * RL;     // [64 keys][PLD]
+  float* kbias = Pt + 64 * PLD;     // [2][64]
+  float* kseg = kbias + 2 * 64;     // [2][64]
+  float* qseg = kseg + 2 * 64;      // [64]
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
   const uint32_t stream = (uint32_t)(b * H + h);
+  const int n = (L + 63) / 64;
+  const bool use_seg = seg_row != nullptr;
   const T* kbase = k.head(b, h, L, D);
   const T* vbase = v.head(b, h, L, D);
+  const bool veck = rows_vec(k), vecv = rows_vec(v);
 
-  load_tile<T, D>(Qs, q.head(b, h, L, D), q.ld, q0, L);
+  {
+    TileFill<T, 64, D, ST, true> fq;
+    fq.load(q.head(b, h, L, D) + (size_t)q0 * q.ld, q.ld, L - q0, D, rows_vec(q), Qt, 64);
+    fq.store(Qt, 64);
+  }
   load_row_info(nullptr, qseg, nullptr, seg_row, b, q0, L);
+  TileFill<T, 64, D, ST, false> fk, fv;
+  auto load = [&](int i) {
+    const int s = i & 1, k0 = (i % n) * 64;
+    fk.load(kbase + (size_t)k0 * k.ld, k.ld, L - k0, D, veck, Ks + s * 64 * RL, RL);
+    if (i >= n) fv.load(vbase + (size_t)k0 * v.ld, v.ld, L - k0, D, vecv, Vs + s * 64 * RL, RL);
+    load_row_info(kbias + 64 * s, kseg + 64 * s, bias_row, seg_row, b, k0, L);
+  };
+  auto store = [&](int i) {
+    const int s = i & 1;
+    fk.store(Ks + s * 64 * RL, RL);
+    if (i >= n) fv.store(Vs + s * 64 * RL, RL);
+  };
+  load(0);
+  store(0);
+  __syncthreads();
 
-  float m_run[4], l_run[4], s[4][4];
-  row_stats<T, D>(Qs, Ks, kbias, kseg, qseg, kbase, k.ld, bias_row, seg_row, b, L, scale,
-                  m_run, l_run);
-
-  // pass 2; l >= 1 (the row's max contributes exp(0)), so the division is safe
-  float acc[4][DC];
+  float m_run[8], l_run[8], acc[8][TN];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i) {
+    m_run[i] = -CUDART_INF_F;
+    l_run[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  for (int k0 = 0; k0 < L; k0 += AK) {
-    __syncthreads();  // the previous tile's K/V/P reads are done
-    load_tile<T, D>(Vs, vbase, v.ld, k0, L);
-    key_tile_scores<T, D>(Qs, Ks, kbias, kseg, qseg, kbase, k.ld, bias_row, seg_row, b, k0, L,
-                          scale, s);
+    for (int c = 0; c < TN; ++c) acc[i][c] = 0.f;
+  }
+  for (int it = 0; it < 2 * n; ++it) {
+    const int s = it & 1, k0 = (it % n) * 64;
+    if (it + 1 < 2 * n) load(it + 1);
+    float sc[8][4];
+    dot_block<D>(sc, Qt, Ks + s * 64 * RL, tx, ty);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float p = expf(s[i][j] - m_run[i]) / l_run[i];
-        Ps[(4 * ty + i) * 65 + c] =
-            round_to<T>(drop.apply(p, stream, q0 + 4 * ty + i, k0 + c));
+        const int c = tcol(tx, j);
+        sc[i][j] = score(sc[i][j], scale, kbias[64 * s + c], use_seg, qseg[trow(ty, i)],
+                         kseg[64 * s + c], k0 + c, L);
       }
-    __syncthreads();
-    pv_tile<D>(Ps, Vs, tx, ty, acc);
+    if (it < n) {
+      stats_step(sc, m_run, l_run);
+    } else {
+      // l >= 1 (the row's max contributes exp(0)), so the division is safe
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = expf(sc[i][j] - m_run[i]) / l_run[i];
+          sc[i][j] = round_to<T>(drop.apply(p, stream, q0 + trow(ty, i), k0 + tcol(tx, j)));
+        }
+      put_transposed(Pt, sc, tx, ty);
+      __syncthreads();
+      fma_tile<TN, false, 64>(acc, Pt, PLD, 4 * ty, 32, Vs + s * 64 * RL, RL, 4 * tx, 64);
+    }
+    if (it + 1 < 2 * n) store(it + 1);
+    __syncthreads();  // buffer s, Pt and the key rows' info are free
   }
 
   T* obase = o.head(b, h, L, D);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + 4 * ty + i;
+  for (int i = 0; i < 8; ++i) {
+    const int qr = q0 + trow(ty, i);
     if (qr >= L) continue;
     T* dst = obase + (size_t)qr * o.ld;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) dst[tx + 16 * c] = from_f<T>(acc[i][c]);
+    for (int c = 0; c < TN; ++c) dst[4 * tx + (c & 3) + 64 * (c >> 2)] = from_f<T>(acc[i][c]);
     if (stat_m && tx == 0) {
       const size_t at = ((size_t)b * H + h) * L + qr;
       stat_m[at] = m_run[i];
@@ -1028,250 +1221,444 @@ cudaError_t launch_attention_bwd_sm90(Rows<const __nv_bfloat16> q, Rows<const __
   }
 }
 
+// --- the backward on the CUDA cores (fp32, and K4 in bf16) -----------------------
+//
+// The gradient needs five L^2 D products a (batch, head): s = q.k and
+// dpd = do.v^T (over d), dv = pd^T.do and dk = ds^T.q (over the queries),
+// dq = ds.k (over the keys). Three kernels form seven of them with one
+// Philox draw a probability, where the pass-twice design before them
+// formed nine with three draws:
+//   attention_bwd_delta  per query tile: s, dpd and delta = sum_j dpd.pd
+//                        (2 products, the one Philox draw, whose keep bits
+//                        it writes out, 64 keys a word); with RECOMPUTE (the fp32
+//                        flash backward, whose forward saved nothing) a
+//                        first pass over the K tiles recomputes m and l with
+//                        the forward's code and saves them;
+//   attention_bwd_dkdv   per key tile, over the query tiles: s, dpd, then
+//                        dv += pd^T.do and dk += ds^T.q (4 products; the
+//                        dropout from the delta pass's keep bits),
+//                        and ds, rounded to T, written out once to a
+//                        [B, H, Lp, Lp] scratch (Lp = L rounded up to 64);
+//   attention_bwd_dq     dq = ds.k, a batched GEMM over the keys reading that
+//                        scratch (1 product).
+// Scores are formed only where they are used, never stored; ds crosses
+// memory once each way (at [96, 512, 768] bf16 604 MB, ~0.36 ms at the
+// card's 3.35 TB/s), which is cheaper than the two products (and a Philox
+// draw) that a second pass over the keys would form again.
+//
+// Every output is one fp32 fmaf chain from 0 in a fixed order -- s and dpd
+// over d, dq over the keys, dk and dv over the queries, all ascending --
+// and delta is summed in the same tree for every query row: the columns
+// tx + 16j of each key tile in the thread's chain, then half_warp_sum. pd
+// is rounded to T before dv, ds before dq and dk, and nothing else is
+// rounded before the stores. That is the order of the plain version's
+// cuBLAS fp32 sums, which the bf16 gates need matched bit for bit (one-ulp
+// flips in dqkv fan out into dx through the 2304-deep projection; PERF.md).
+// One program owns each output tile, so there are no float atomics and the
+// sums are deterministic.
+
 template <int D>
-constexpr size_t bwd_dq_smem_floats() {
-  return 4 * 64 * (D + 1) + 64 * 65 + 3 * 64;
+constexpr size_t bwd_delta_smem_floats() {
+  return 2 * D * 64 + 4 * 64 * (D + 4) + 5 * 64;
 }
 
-// On the CUDA cores (fp32, and K4 in bf16): dq, and delta = sum_j dpd.pd,
-// for one (64-row query tile, head, batch item): pass 1 over the key tiles
-// sums delta (it uses the unrounded pd, so it is not rowsum(do * o) once o
-// is rounded or dropout applies); pass 2 forms ds and accumulates
-// dq = ds . k. With RECOMPUTE (the fp32 flash backward, whose forward saved
-// no statistics) a pass 0 first recomputes m and l as the forward made them
-// and writes them to stat_m/stat_l for attention_bwd_dkdv; without it they
-// are read from there.
+// delta = sum_j dpd.pd for one (64-row query tile, head, batch item), from
+// the unrounded pd (so it is not rowsum(do * o) once o is rounded or
+// dropout applies). Q^T and dO^T are filled once; K and V tiles stream
+// through two buffers. m and l are read from stat_m/stat_l, or with
+// RECOMPUTE formed first over the K tiles (stats_step, as the forward forms
+// them) and written there for attention_bwd_dkdv.
 template <typename T, int D, bool RECOMPUTE>
-__global__ void __launch_bounds__(ATHREADS)
-attention_bwd_dq(Rows<const T> q, Rows<const T> k, Rows<const T> v, Rows<const T> dO,
-                 float* __restrict__ stat_m, float* __restrict__ stat_l,
-                 const float* __restrict__ bias_row, const float* __restrict__ seg_row,
-                 float* __restrict__ delta_out, Rows<T> dq_out,
-                 int L, float scale, Dropout drop) {
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + 64 * (D + 1);
-  float* Ks = dOs + 64 * (D + 1);
-  float* Vs = Ks + 64 * (D + 1);
-  float* DSs = Vs + 64 * (D + 1);
-  float* kbias = DSs + 64 * 65;
-  float* kseg = kbias + 64;
-  float* qseg = kseg + 64;
+__global__ void __launch_bounds__(ST)
+attention_bwd_delta(Rows<const T> q, Rows<const T> k, Rows<const T> v, Rows<const T> dO,
+                    float* __restrict__ stat_m, float* __restrict__ stat_l,
+                    const float* __restrict__ bias_row, const float* __restrict__ seg_row,
+                    float* __restrict__ delta_out, uint64_t* __restrict__ keep_out, int Lp,
+                    int L, float scale, Dropout drop) {
+  constexpr int RL = D + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* Qt = smem;                 // [D][64]
+  float* dOt = Qt + D * 64;         // [D][64]
+  float* Ks = dOt + D * 64;         // [2][64][RL]
+  float* Vs = Ks + 2 * 64 * RL;     // [2][64][RL]
+  float* kbias = Vs + 2 * 64 * RL;  // [2][64]
+  float* kseg = kbias + 2 * 64;     // [2][64]
+  float* qseg = kseg + 2 * 64;      // [64]
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
   const uint32_t stream = (uint32_t)(b * H + h);
+  const int n = (L + 63) / 64, n0 = RECOMPUTE ? n : 0, total = n0 + n;
+  const bool use_seg = seg_row != nullptr;
   const T* kbase = k.head(b, h, L, D);
   const T* vbase = v.head(b, h, L, D);
+  const bool veck = rows_vec(k), vecv = rows_vec(v);
 
-  load_tile<T, D>(Qs, q.head(b, h, L, D), q.ld, q0, L);
-  load_tile<T, D>(dOs, dO.head(b, h, L, D), dO.ld, q0, L);
-  load_row_info(nullptr, qseg, nullptr, seg_row, b, q0, L);
-  float m[4], l[4];
-  if (RECOMPUTE) {
-    row_stats<T, D>(Qs, Ks, kbias, kseg, qseg, kbase, k.ld, bias_row, seg_row, b, L, scale,
-                    m, l);
+  {
+    TileFill<T, 64, D, ST, true> f;
+    f.load(q.head(b, h, L, D) + (size_t)q0 * q.ld, q.ld, L - q0, D, rows_vec(q), Qt, 64);
+    f.store(Qt, 64);
+    f.load(dO.head(b, h, L, D) + (size_t)q0 * dO.ld, dO.ld, L - q0, D, rows_vec(dO), dOt, 64);
+    f.store(dOt, 64);
   }
+  load_row_info(nullptr, qseg, nullptr, seg_row, b, q0, L);
+  TileFill<T, 64, D, ST, false> fk, fv;
+  auto k0_of = [&](int i) { return (i < n0 ? i : i - n0) * 64; };
+  auto load = [&](int i) {
+    const int s = i & 1, k0 = k0_of(i);
+    fk.load(kbase + (size_t)k0 * k.ld, k.ld, L - k0, D, veck, Ks + s * 64 * RL, RL);
+    if (i >= n0) fv.load(vbase + (size_t)k0 * v.ld, v.ld, L - k0, D, vecv, Vs + s * 64 * RL, RL);
+    load_row_info(kbias + 64 * s, kseg + 64 * s, bias_row, seg_row, b, k0, L);
+  };
+  auto store = [&](int i) {
+    const int s = i & 1;
+    fk.store(Ks + s * 64 * RL, RL);
+    if (i >= n0) fv.store(Vs + s * 64 * RL, RL);
+  };
+  load(0);
+  store(0);
+  __syncthreads();
+
+  float m[8], l[8], delta[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + 4 * ty + i;
+  for (int i = 0; i < 8; ++i) {
+    const int qr = q0 + trow(ty, i);
     const size_t at = ((size_t)b * H + h) * L + qr;
     if (RECOMPUTE) {
-      if (qr < L && tx == 0) {
-        stat_m[at] = m[i];
-        stat_l[at] = l[i];
-      }
+      m[i] = -CUDART_INF_F;
+      l[i] = 0.f;
     } else {
       m[i] = qr < L ? stat_m[at] : 0.f;
       l[i] = qr < L ? stat_l[at] : 1.f;
     }
+    delta[i] = 0.f;
   }
-
-  // p (the forward's probability), pd (dropped out, unrounded) and
-  // dpd = do . v for this thread's 4x4 entries of key tile k0
-  float p[4][4], pd[4][4], dpd[4][4];
-  auto tile = [&](int k0) {
-    __syncthreads();
-    load_tile<T, D>(Vs, vbase, v.ld, k0, L);
-    float s[4][4];
-    key_tile_scores<T, D>(Qs, Ks, kbias, kseg, qseg, kbase, k.ld, bias_row, seg_row, b, k0, L,
-                          scale, s);
-    dot_tile<D>(dOs, Vs, tx, ty, dpd);
+  for (int it = 0; it < total; ++it) {
+    const int s = it & 1, k0 = k0_of(it);
+    if (it + 1 < total) load(it + 1);
+    float sc[8][4];
+    dot_block<D>(sc, Qt, Ks + s * 64 * RL, tx, ty);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int qr = q0 + 4 * ty + i;
-        p[i][j] = qr < L ? expf(s[i][j] - m[i]) / l[i] : 0.f;
-        pd[i][j] = drop.apply(p[i][j], stream, qr, k0 + tx + 16 * j);
+        const int c = tcol(tx, j);
+        sc[i][j] = score(sc[i][j], scale, kbias[64 * s + c], use_seg, qseg[trow(ty, i)],
+                         kseg[64 * s + c], k0 + c, L);
       }
-  };
-
-  float delta[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < L; k0 += AK) {
-    tile(k0);
+    if (it < n0) {
+      stats_step(sc, m, l);
+      if (it == n0 - 1 && tx == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 8; ++i) {
+          const int qr = q0 + trow(ty, i);
+          if (qr < L) {
+            stat_m[((size_t)b * H + h) * L + qr] = m[i];
+            stat_l[((size_t)b * H + h) * L + qr] = l[i];
+          }
+        }
+      }
+    } else {
+      // p (the forward's probability) dropped out, unrounded, in place; the
+      // keep bits of each row's 64 keys gathered by ballot (lanes 0-15 hold
+      // row trow(ty, i) of an even ty, 16-31 of the odd one) and written as
+      // one word, bit c for key k0 + c
 #pragma unroll
-      for (int j = 0; j < 4; ++j) delta[i] = fmaf(dpd[i][j], pd[i][j], delta[i]);
+      for (int i = 0; i < 8; ++i) {
+        const int qr = q0 + trow(ty, i);
+        uint64_t word = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = qr < L ? expf(sc[i][j] - m[i]) / l[i] : 0.f;
+          if (drop.on) {
+            const bool kept = drop.keep(stream, qr, k0 + tcol(tx, j));
+            sc[i][j] = kept ? p * drop.inv_keep : 0.f;  // drop.apply's value
+            const uint32_t bits = __ballot_sync(0xffffffffu, kept) >> (16 * (ty & 1));
+            word |= (uint64_t)(bits & 0xffffu) << (16 * j);
+          } else {
+            sc[i][j] = p;
+          }
+        }
+        if (drop.on && tx == 0)
+          keep_out[((size_t)(b * H + h) * Lp + qr) * (Lp / 64) + k0 / 64] = word;
+      }
+      float dpd[8][4];
+      dot_block<D>(dpd, dOt, Vs + s * 64 * RL, tx, ty);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) delta[i] = fmaf(dpd[i][j], sc[i][j], delta[i]);
+    }
+    if (it + 1 < total) store(it + 1);
+    __syncthreads();  // buffer s and the key rows' info are free
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) delta[i] = half_warp_sum(delta[i]);
-
-  float dq[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dq[i][c] = 0.f;
-  for (int k0 = 0; k0 < L; k0 += AK) {
-    tile(k0);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        DSs[(4 * ty + i) * 65 + tx + 16 * j] =
-            round_to<T>((pd[i][j] * dpd[i][j] - p[i][j] * delta[i]) * scale);
-    __syncthreads();
-    pv_tile<D>(DSs, Ks, tx, ty, dq);
-  }
-
-  T* dqbase = dq_out.head(b, h, L, D);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + 4 * ty + i;
-    if (qr >= L) continue;
-    T* dst = dqbase + (size_t)qr * dq_out.ld;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dst[tx + 16 * c] = from_f<T>(dq[i][c]);
-    if (tx == 0) delta_out[((size_t)b * H + h) * L + qr] = delta[i];
+  for (int i = 0; i < 8; ++i) {
+    delta[i] = half_warp_sum(delta[i]);
+    const int qr = q0 + trow(ty, i);
+    if (qr < L && tx == 0) delta_out[((size_t)b * H + h) * L + qr] = delta[i];
   }
 }
 
-template <int D>
+template <int D, bool DK, bool DV>
 constexpr size_t bwd_dkdv_smem_floats() {
-  return 4 * 64 * (D + 1) + 2 * 64 * 65 + 6 * 64;
+  return (DK ? 2 : 1) * D * 64 + 2 * 64 * (D + 4) + ((DK ? 1 : 0) + (DV ? 1 : 0)) * 64 * PLD +
+         8 * 64;
 }
 
-// On the CUDA cores (fp32, and K4 in bf16): dk and dv for one (64-row key
-// tile, head, batch item), looping over the query tiles; m, l and delta
-// come from attention_bwd_dq. The tile is the transpose of the forward's:
-// thread (ty, tx) owns key rows 4ty+i and query columns tx+16j, so
-// sT[i][j] = k . q is the forward's score with the factors swapped (the
-// same products in the same order, so the same bits).
-// One program owns each key tile, so there are no float atomics and the
-// sums are deterministic.
-template <typename T, int D>
-__global__ void __launch_bounds__(ATHREADS)
+// dk (DK) and dv (DV) for one (64-row key tile, head, batch item), over the
+// query tiles; m, l and delta come from attention_bwd_delta. The tile is
+// the transpose of the forward's: thread (ty, tx) owns key rows trow and
+// query columns tcol, so its raw score is k.q, the forward's product with
+// the factors swapped (the same fmaf). K^T (and V^T for dpd) are filled
+// once; Q and dO stream through one buffer each, the next tile's reads held
+// in registers (bf16) over this one's products -- two buffers would take the
+// shared memory of a second block a multiprocessor. The dropout mask is the
+// delta pass's (keep_in), not drawn again. pd and ds, rounded to T, go to
+// shared memory k-major for the products over the queries; with DK the ds
+// tile is also written out to ds_out, rows of Lp, for attention_bwd_dq. At
+// D = 64 one launch does both (DK = DV); at D = 128 the accumulators of both
+// do not fit the registers, so dk and dv take a launch each (8 products
+// there).
+template <typename T, int D, bool DK, bool DV>
+__global__ void __launch_bounds__(ST)
 attention_bwd_dkdv(Rows<const T> q, Rows<const T> k, Rows<const T> v, Rows<const T> dO,
                    const float* __restrict__ stat_m, const float* __restrict__ stat_l,
                    const float* __restrict__ delta_in, const float* __restrict__ bias_row,
-                   const float* __restrict__ seg_row, Rows<T> dk_out, Rows<T> dv_out,
-                   int L, float scale, Dropout drop) {
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + 64 * (D + 1);
-  float* Qs = Vs + 64 * (D + 1);
-  float* dOs = Qs + 64 * (D + 1);
-  float* PdT = dOs + 64 * (D + 1);  // [key][query], rounded pd
-  float* DsT = PdT + 64 * 65;       // [key][query], rounded ds
-  float* qm = DsT + 64 * 65;
+                   const float* __restrict__ seg_row, const uint64_t* __restrict__ keep_in,
+                   Rows<T> dk_out, Rows<T> dv_out, T* __restrict__ ds_out, int Lp, int L,
+                   float scale, Dropout drop) {
+  constexpr int RL = D + 4, TN = D / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* Kt = smem;                             // [D][64]
+  float* Vt = Kt + D * 64;                      // [D][64], with DK
+  float* Qs = Vt + (DK ? D * 64 : 0);           // [64][RL]
+  float* dOs = Qs + 64 * RL;                    // [64][RL]
+  float* PDs = dOs + 64 * RL;                   // [64 queries][PLD], with DV
+  float* DSs = PDs + (DV ? 64 * PLD : 0);       // [64 queries][PLD], with DK
+  float* qm = DSs + (DK ? 64 * PLD : 0);        // the query tile's m, l, delta, segment
   float* ql = qm + 64;
   float* qdelta = ql + 64;
   float* qseg = qdelta + 64;
   float* kbias = qseg + 64;
   float* kseg = kbias + 64;
+  uint64_t* qkeep = reinterpret_cast<uint64_t*>(kseg + 64);  // the query rows' keep bits
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * AK, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
-  const uint32_t stream = (uint32_t)(b * H + h);
-  const T* qbase = q.head(b, h, L, D);
-  const T* dO_base = dO.head(b, h, L, D);
+  const int k0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int n = (L + 63) / 64;
   const bool use_seg = seg_row != nullptr;
+  const T* qbase = q.head(b, h, L, D);
+  const T* dObase = dO.head(b, h, L, D);
+  const bool vecq = rows_vec(q), vecd = rows_vec(dO);
 
-  load_tile<T, D>(Ks, k.head(b, h, L, D), k.ld, k0, L);
-  load_tile<T, D>(Vs, v.head(b, h, L, D), v.ld, k0, L);
+  {
+    TileFill<T, 64, D, ST, true> f;
+    f.load(k.head(b, h, L, D) + (size_t)k0 * k.ld, k.ld, L - k0, D, rows_vec(k), Kt, 64);
+    f.store(Kt, 64);
+    if (DK) {
+      f.load(v.head(b, h, L, D) + (size_t)k0 * v.ld, v.ld, L - k0, D, rows_vec(v), Vt, 64);
+      f.store(Vt, 64);
+    }
+  }
   load_row_info(kbias, kseg, bias_row, seg_row, b, k0, L);
-
-  float dk[4][DC], dv[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
-
-  for (int q0 = 0; q0 < L; q0 += AQ) {
-    __syncthreads();  // the previous query tile's reads are done
-    load_tile<T, D>(Qs, qbase, q.ld, q0, L);
-    load_tile<T, D>(dOs, dO_base, dO.ld, q0, L);
-    load_row_info(nullptr, qseg, nullptr, seg_row, b, q0, L);
+  using Fill = TileFill<T, 64, D, ST, false>;
+  Fill fq, fd;
+  auto load = [&](int i) {
+    const int q0 = i * 64;
+    fq.load(qbase + (size_t)q0 * q.ld, q.ld, L - q0, D, vecq, Qs, RL);
+    fd.load(dObase + (size_t)q0 * dO.ld, dO.ld, L - q0, D, vecd, dOs, RL);
+  };
+  auto store = [&](int i) {
+    fq.store(Qs, RL);
+    fd.store(dOs, RL);
     if (tid < 64) {
-      const int qr = q0 + tid;
+      const int qr = i * 64 + tid;
       const size_t at = ((size_t)b * H + h) * L + qr;
       const bool ok = qr < L;
       qm[tid] = ok ? stat_m[at] : 0.f;
       ql[tid] = ok ? stat_l[at] : 1.f;
-      qdelta[tid] = ok ? delta_in[at] : 0.f;
+      if (DK) qdelta[tid] = ok ? delta_in[at] : 0.f;
+      qseg[tid] = (ok && use_seg) ? seg_row[(size_t)b * L + qr] : 0.f;
+      if (drop.on) qkeep[tid] = keep_in[((size_t)(b * H + h) * Lp + qr) * (Lp / 64) + blockIdx.x];
     }
-    __syncthreads();
-    float s[4][4], dpd[4][4];
-    dot_tile<D>(Ks, Qs, tx, ty, s);
-    dot_tile<D>(Vs, dOs, tx, ty, dpd);
+  };
+  load(0);
+  store(0);
+  __syncthreads();
+
+  float dk[8][TN], dv[8][TN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kr = 4 * ty + i, kk = k0 + kr;
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < TN; ++c) dk[i][c] = dv[i][c] = 0.f;
+  T* ds_tile = ds_out + (size_t)(b * H + h) * Lp * Lp + k0;
+  for (int it = 0; it < n; ++it) {
+    const int q0 = it * 64;
+    float dpd[8][4], sc[8][4];
+    if (DK) dot_block<D>(dpd, Vt, dOs, tx, ty);
+    dot_block<D>(sc, Kt, Qs, tx, ty);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int kr = trow(ty, i), kk = k0 + kr;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int qc = tx + 16 * j, qr = q0 + qc;
-        const float sc = score(s[i][j], scale, kbias[kr], use_seg, qseg[qc], kseg[kr], kk, L);
-        const float p = qr < L ? expf(sc - qm[qc]) / ql[qc] : 0.f;
-        const float pd = drop.apply(p, stream, qr, kk);
-        PdT[kr * 65 + qc] = round_to<T>(pd);
-        DsT[kr * 65 + qc] = round_to<T>((pd * dpd[i][j] - p * qdelta[qc]) * scale);
+        const int qc = tcol(tx, j), qr = q0 + qc;
+        const float sv = score(sc[i][j], scale, kbias[kr], use_seg, qseg[qc], kseg[kr], kk, L);
+        const float p = qr < L ? expf(sv - qm[qc]) / ql[qc] : 0.f;
+        // drop.apply's value, from the delta pass's draw
+        const float pd = !drop.on ? p : ((qkeep[qc] >> kr) & 1u) ? p * drop.inv_keep : 0.f;
+        sc[i][j] = round_to<T>(pd);
+        if (DK) dpd[i][j] = round_to<T>((pd * dpd[i][j] - p * qdelta[qc]) * scale);
       }
     }
+    if (DV) put_transposed(PDs, sc, tx, ty);
+    if (DK) put_transposed(DSs, dpd, tx, ty);
+    // the next tile's reads into registers, in flight over the products
+    // below (issued here, not earlier: the scores' registers are free)
+    if (!Fill::kAsync && it + 1 < n) load(it + 1);
     __syncthreads();
-    pv_tile<D>(PdT, dOs, tx, ty, dv);
-    pv_tile<D>(DsT, Qs, tx, ty, dk);
+    if (DV) fma_tile<TN, false, 64>(dv, PDs, PLD, 4 * ty, 32, dOs, RL, 4 * tx, 64);
+    if (DK) {
+      fma_tile<TN, false, 64>(dk, DSs, PLD, 4 * ty, 32, Qs, RL, 4 * tx, 64);
+      // the ds tile out: row r is query q0 + r, keys k0..k0+63, in 16 bytes
+      constexpr int W = kChunk<T>;
+#pragma unroll
+      for (int t = 0; t < 64 * 64 / W / ST; ++t) {
+        const int i = tid + ST * t, r = i / (64 / W), c = i % (64 / W);
+        store_chunk(ds_tile + (size_t)(q0 + r) * Lp + c * W, DSs + r * PLD + c * W);
+      }
+    }
+    __syncthreads();  // Qs, dOs, PDs and DSs are free
+    if (it + 1 < n) {
+      if (Fill::kAsync) load(it + 1);
+      store(it + 1);
+      __syncthreads();
+    }
   }
 
   T* dkbase = dk_out.head(b, h, L, D);
   T* dvbase = dv_out.head(b, h, L, D);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kk = k0 + 4 * ty + i;
+  for (int i = 0; i < 8; ++i) {
+    const int kk = k0 + trow(ty, i);
     if (kk >= L) continue;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      dkbase[(size_t)kk * dk_out.ld + tx + 16 * c] = from_f<T>(dk[i][c]);
-      dvbase[(size_t)kk * dv_out.ld + tx + 16 * c] = from_f<T>(dv[i][c]);
+    for (int c = 0; c < TN; ++c) {
+      const int col = 4 * tx + (c & 3) + 64 * (c >> 2);
+      if (DK) dkbase[(size_t)kk * dk_out.ld + col] = from_f<T>(dk[i][c]);
+      if (DV) dvbase[(size_t)kk * dv_out.ld + col] = from_f<T>(dv[i][c]);
     }
   }
 }
 
-// The launch of attention_bwd_dq then attention_bwd_dkdv over
-// (ceil(L/64), H, B) blocks on `stream`, on the CUDA cores: the fp32
-// backward of K4 and K8, and K4's bf16 backward.
+template <int D>
+constexpr size_t bwd_dq_smem_floats() {
+  return 2 * 64 * 64 + 2 * 64 * (D + 4);
+}
+
+// dq = ds . k for one (64-row query tile, head, batch item): a GEMM over the
+// keys in ascending order, ds tiles (the scratch attention_bwd_dkdv wrote,
+// rows Lp apart) filled transposed and K tiles row by row, two buffers each.
+template <typename T, int D>
+__global__ void __launch_bounds__(ST)
+attention_bwd_dq(const T* __restrict__ ds, int Lp, Rows<const T> k, Rows<T> dq_out, int L) {
+  constexpr int RL = D + 4, TN = D / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* DSt = smem;                // [2][64 keys][64 queries]
+  float* Ks = DSt + 2 * 64 * 64;    // [2][64][RL]
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int n = (L + 63) / 64;
+  const T* dsbase = ds + ((size_t)(b * H + h) * Lp + q0) * Lp;
+  const T* kbase = k.head(b, h, L, D);
+  const bool veck = rows_vec(k);
+  TileFill<T, 64, 64, ST, true> fs;
+  TileFill<T, 64, D, ST, false> fk;
+  auto load = [&](int i) {
+    const int s = i & 1, k0 = i * 64;
+    fs.load(dsbase + k0, Lp, 64, 64, true, DSt + s * 64 * 64, 64);
+    fk.load(kbase + (size_t)k0 * k.ld, k.ld, L - k0, D, veck, Ks + s * 64 * RL, RL);
+  };
+  auto store = [&](int i) {
+    const int s = i & 1;
+    fs.store(DSt + s * 64 * 64, 64);
+    fk.store(Ks + s * 64 * RL, RL);
+  };
+  load(0);
+  store(0);
+  __syncthreads();
+  float acc[8][TN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < TN; ++c) acc[i][c] = 0.f;
+  for (int it = 0; it < n; ++it) {
+    const int s = it & 1;
+    if (it + 1 < n) load(it + 1);
+    fma_tile<TN, false, 64>(acc, DSt + s * 64 * 64, 64, 4 * ty, 32, Ks + s * 64 * RL, RL, 4 * tx,
+                            64);
+    if (it + 1 < n) store(it + 1);
+    __syncthreads();
+  }
+  T* dqbase = dq_out.head(b, h, L, D);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int qr = q0 + trow(ty, i);
+    if (qr >= L) continue;
+#pragma unroll
+    for (int c = 0; c < TN; ++c)
+      dqbase[(size_t)qr * dq_out.ld + 4 * tx + (c & 3) + 64 * (c >> 2)] = from_f<T>(acc[i][c]);
+  }
+}
+
+// Lp: the row distance of the ds scratch, L rounded up to the 64-row tile
+inline int ds_rows(int L) { return (L + 63) / 64 * 64; }
+
+// The launch of attention_bwd_delta, attention_bwd_dkdv (two launches at
+// D = 128) and attention_bwd_dq over (ceil(L/64), H, B) blocks on `stream`,
+// on the CUDA cores: the fp32 backward of K4 and K8, and K4's bf16
+// backward. ds: scratch of B*H*Lp*Lp elements of T (ds_rows); keep_bits:
+// with dropout, scratch of B*H*Lp*(Lp/64) words, the delta pass's keep mask
+// for the dk/dv kernel.
 template <typename T, int D, bool RECOMPUTE>
 cudaError_t launch_attention_bwd(Rows<const T> q, Rows<const T> k, Rows<const T> v,
                                  Rows<const T> dO, float* stat_m, float* stat_l, float* delta,
                                  const float* bias_row, const float* seg_row, Rows<T> dq,
-                                 Rows<T> dk, Rows<T> dv, int B, int L, int H, Dropout drop,
-                                 cudaStream_t stream) {
+                                 Rows<T> dk, Rows<T> dv, T* ds, uint64_t* keep_bits, int B,
+                                 int L, int H, Dropout drop, cudaStream_t stream) {
+  if (ds == nullptr || (drop.on && keep_bits == nullptr)) return cudaErrorInvalidValue;
   const float scale = 1.f / sqrtf((float)D);
   const dim3 grid((L + 63) / 64, H, B);
-  size_t smem = sizeof(float) * bwd_dq_smem_floats<D>();
-  cudaError_t err = allow_smem(attention_bwd_dq<T, D, RECOMPUTE>, smem);
+  const int Lp = ds_rows(L);
+  size_t smem = sizeof(float) * bwd_delta_smem_floats<D>();
+  cudaError_t err = allow_smem(attention_bwd_delta<T, D, RECOMPUTE>, smem);
   if (err != cudaSuccess) return err;
-  attention_bwd_dq<T, D, RECOMPUTE><<<grid, ATHREADS, smem, stream>>>(
-      q, k, v, dO, stat_m, stat_l, bias_row, seg_row, delta, dq, L, scale, drop);
+  attention_bwd_delta<T, D, RECOMPUTE><<<grid, ST, smem, stream>>>(
+      q, k, v, dO, stat_m, stat_l, bias_row, seg_row, delta, keep_bits, Lp, L, scale, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  smem = sizeof(float) * bwd_dkdv_smem_floats<D>();
-  err = allow_smem(attention_bwd_dkdv<T, D>, smem);
+  auto dkdv = [&](auto kernel, size_t floats) {
+    const size_t bytes = sizeof(float) * floats;
+    cudaError_t e = allow_smem(kernel, bytes);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, ST, bytes, stream>>>(q, k, v, dO, stat_m, stat_l, delta, bias_row, seg_row,
+                                        keep_bits, dk, dv, ds, Lp, L, scale, drop);
+    return cudaGetLastError();
+  };
+  if constexpr (D == 64) {
+    err = dkdv(attention_bwd_dkdv<T, D, true, true>, bwd_dkdv_smem_floats<D, true, true>());
+  } else {
+    err = dkdv(attention_bwd_dkdv<T, D, true, false>, bwd_dkdv_smem_floats<D, true, false>());
+    if (err == cudaSuccess)
+      err = dkdv(attention_bwd_dkdv<T, D, false, true>, bwd_dkdv_smem_floats<D, false, true>());
+  }
   if (err != cudaSuccess) return err;
-  attention_bwd_dkdv<T, D><<<grid, ATHREADS, smem, stream>>>(
-      q, k, v, dO, stat_m, stat_l, delta, bias_row, seg_row, dk, dv, L, scale, drop);
+  smem = sizeof(float) * bwd_dq_smem_floats<D>();
+  err = allow_smem(attention_bwd_dq<T, D>, smem);
+  if (err != cudaSuccess) return err;
+  attention_bwd_dq<T, D><<<grid, ST, smem, stream>>>(ds, Lp, k, dq, L);
   return cudaGetLastError();
 }
 
@@ -1299,7 +1686,7 @@ cudaError_t launch_attention_fwd(Rows<const T> q, Rows<const T> k, Rows<const T>
     const size_t smem = sizeof(float) * fwd_smem_floats<D>();
     cudaError_t err = allow_smem(attention_fwd<T, D>, smem);
     if (err != cudaSuccess) return err;
-    attention_fwd<T, D><<<grid, ATHREADS, smem, stream>>>(q, k, v, bias_row, seg_row, o, stat_m,
+    attention_fwd<T, D><<<grid, ST, smem, stream>>>(q, k, v, bias_row, seg_row, o, stat_m,
                                                            stat_l, L, scale, drop);
   }
   return cudaGetLastError();

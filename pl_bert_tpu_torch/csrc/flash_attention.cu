@@ -22,8 +22,8 @@
 // The custom-VJP contract of the TPU kernel (:157-189) is kept: the forward
 // saves nothing but its inputs, and the backward recomputes the row max and
 // the denominator (pass 0 of the dq kernel, with the forward's own code, so
-// in bf16 they equal the block forward's saved m and l bit for bit), then
-// p, the dropout mask and ds. The rounding points are the TPU
+// in bf16 they equal the block forward's saved m and l bit for bit; in
+// fp32 the fp32 forward's), then p, the dropout mask and ds. The rounding points are the TPU
 // kernel's: p normalised in fp32, dropped out, then rounded to the compute
 // type before p.v (:65-69) -- hence two passes over the keys, not an online
 // softmax that rounds an unnormalised p; delta from the unrounded pd (:109),
@@ -46,7 +46,8 @@
 // (attention_bwd_dq_sm90, attention_bwd_dkdv_sm90; q, k, v and do by TMA),
 // forming q.k four times (three passes over the keys in the dq kernel, one
 // in dk/dv) and drawing the dropout mask three times. The fp32 kernels
-// compute on the CUDA cores.
+// compute on the CUDA cores, the block backward's kernels (delta pass,
+// dk/dv with ds written to a scratch, dq as a GEMM over it).
 
 #include "attention_tiles.cuh"
 
@@ -73,8 +74,9 @@ cudaError_t flash_fwd(const void* q, const void* k, const void* v, const void* b
 template <typename T, int D>
 cudaError_t flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                       const void* bias_row, const void* seg_row, void* stat_m, void* stat_l,
-                      void* delta, void* dq, void* dk, void* dv, int B, int L, int H, int ldq,
-                      int ldk, int ldv, int ldo, Dropout drop, cudaStream_t stream) {
+                      void* delta, void* ds, void* keep_bits, void* dq, void* dk, void* dv, int B,
+                      int L, int H, int ldq, int ldk, int ldv, int ldo, Dropout drop,
+                      cudaStream_t stream) {
   const int P = H * D;  // dq, dk, dv are contiguous [B, L, H, D]
   const Rows<const T> qr{static_cast<const T*>(q), ldq}, kr{static_cast<const T*>(k), ldk},
       vr{static_cast<const T*>(v), ldv}, dor{static_cast<const T*>(dout), ldo};
@@ -89,8 +91,9 @@ cudaError_t flash_bwd(const void* q, const void* k, const void* v, const void* d
     return launch_attention_bwd_sm90<D>(qr, kr, vr, dor, m, l, dl, br, sr, dqr, dkr, dvr, B, L,
                                         H, drop, stream);
   else
-    return launch_attention_bwd<T, D, true>(qr, kr, vr, dor, m, l, dl, br, sr, dqr, dkr, dvr, B,
-                                            L, H, drop, stream);
+    return launch_attention_bwd<T, D, true>(qr, kr, vr, dor, m, l, dl, br, sr, dqr, dkr, dvr,
+                                            static_cast<T*>(ds), static_cast<uint64_t*>(keep_bits),
+                                            B, L, H, drop, stream);
 }
 
 }  // namespace
@@ -121,19 +124,23 @@ extern "C" int plbt_flash_attention_fwd(
 }
 
 // The backward. q, k, v as in the forward (the saved inputs) and dout with
-// row distance ldo; scratch stat_m, stat_l and delta [B, H, L] fp32; writes
+// row distance ldo; scratch stat_m, stat_l and delta [B, H, L] fp32, and in
+// fp32 ds [B, H, Lp, Lp] (Lp = L rounded up to a multiple of 64) and, with
+// dropout, keep_bits [B, H, Lp, Lp/64] 64-bit words (both NULL in bf16,
+// whose kernels keep ds and the mask on the chip); writes
 // dq, dk and dv, contiguous [B, L, H, D] of the inputs' type.
 extern "C" int plbt_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout, const void* bias_row,
-    const void* seg_row, void* stat_m, void* stat_l, void* delta, void* dq, void* dk, void* dv,
+    const void* seg_row, void* stat_m, void* stat_l, void* delta, void* ds, void* keep_bits,
+    void* dq, void* dk, void* dv,
     int B, int L, int H, int D, int ldq, int ldk, int ldv, int ldo, int dtype, int dropout,
     unsigned int seed, unsigned int thresh, float inv_keep, void* stream) {
   if (!flash_shape_ok(B, L, H, D, ldq, ldk, ldv, ldo)) return -1;
   const Dropout drop = make_dropout(dropout, seed, thresh, inv_keep);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto run = [&](auto launch) {
-    return static_cast<int>(launch(q, k, v, dout, bias_row, seg_row, stat_m, stat_l, delta, dq,
-                                   dk, dv, B, L, H, ldq, ldk, ldv, ldo, drop, st));
+    return static_cast<int>(launch(q, k, v, dout, bias_row, seg_row, stat_m, stat_l, delta, ds,
+                                   keep_bits, dq, dk, dv, B, L, H, ldq, ldk, ldv, ldo, drop, st));
   };
   if (dtype == 0) return run(D == 64 ? flash_bwd<float, 64> : flash_bwd<float, 128>);
   if (dtype == 1)

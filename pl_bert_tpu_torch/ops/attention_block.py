@@ -20,7 +20,10 @@ runs on the tensor cores (``wgmma`` fed by TMA, for the projections and
 the attention alike), and so does the backward's last projection; the
 backward's attention and ``do`` projection stay on the CUDA cores, whose
 FMA chains reproduce the plain version's cuBLAS fp32 sums (the header of
-``attention_block.cu`` says why). fp32 runs on the CUDA cores. All
+``attention_block.cu`` says why): a delta pass, a dk/dv kernel that
+writes the rounded ds once to a scratch, and dq as a GEMM over it
+(:func:`bwd_scratch`), all on one register-blocked micro-tile that keeps
+every sum's order. fp32 runs on the CUDA cores. All
 projections, forward and backward (``do = dout·Woᵀ``,
 ``dx = [dq|dk|dv]·[Wq|Wk|Wv]ᵀ``), run in the hand-written GEMMs there,
 not in cuBLAS. The weight and bias gradients are plain matmuls and sums
@@ -54,7 +57,10 @@ Differences from the TPU kernels, all deliberate:
 Each kernel has a plain PyTorch version with the TPU kernel's rounding
 points beside it; a wrapper takes the plain version for CPU tensors only.
 The plain backward is written out from the saved tensors in the formulas
-of ``_bwd_kernel``, not derived by autograd.
+of ``_bwd_kernel``, not derived by autograd, in one pass
+(:func:`attention_backward_plain`) and stage by stage as the CUDA-core
+kernels split it (:func:`attention_delta_plain`,
+:func:`attention_dkdv_plain`, :func:`attention_dq_plain`).
 """
 
 from __future__ import annotations
@@ -352,6 +358,62 @@ def train_backward_plain(dout, hidden, wqkv, wo, saved, num_heads: int, bias_row
     return dx, dqkv
 
 
+def _backward_terms(do, saved, num_heads: int, bias_row, seg_row, dropout_rate, dropout_seed,
+                    keep):
+    """What every stage of the attention's backward forms from the saved
+    tensors: ``(q, k, v, p, pd, dpd, scale)``, with ``p = exp(s − m)/l``
+    from the saved statistics, ``pd`` dropped out and unrounded and
+    ``dpd = do·vᵀ`` (fp32 [B, H, L, L]; q, k, v [B, L, H, D] in the
+    compute dtype)."""
+    qkv, _, m, den = saved
+    B, _, L = m.shape
+    D = qkv.shape[1] // 3 // num_heads
+    do = do.reshape(B, L, num_heads, D).float()
+    q, k, v, s = _scores(qkv, num_heads, bias_row, seg_row, B, L)
+    p = torch.exp(s - m[..., None]) / den[..., None]
+    pd = _drop(p, keep, dropout_rate, dropout_seed, B, num_heads, L)
+    dpd = torch.einsum("blhd,bmhd->bhlm", do, v.float())
+    return q, k, v, p, pd, dpd, 1.0 / math.sqrt(D)
+
+
+def attention_delta_plain(do, saved, num_heads: int, bias_row=None, seg_row=None,
+                          dropout_rate: float = 0.0, dropout_seed=None, keep=None):
+    """The block backward's delta pass in plain PyTorch: ``delta = Σ_j
+    dpd·pd`` [B, H, L] fp32, from the unrounded ``pd`` (what
+    ``attention_bwd_delta`` computes)."""
+    *_, pd, dpd, _ = _backward_terms(do, saved, num_heads, bias_row, seg_row, dropout_rate,
+                                     dropout_seed, keep)
+    return (dpd * pd).sum(dim=-1)
+
+
+def attention_dkdv_plain(do, saved, delta, num_heads: int, bias_row=None, seg_row=None,
+                         dropout_rate: float = 0.0, dropout_seed=None, keep=None):
+    """The block backward's dk/dv kernel in plain PyTorch, fed ``delta``:
+    ``(dk, dv, ds)`` with dk, dv [B, L, H, D] in fp32 (rounded on store by
+    the kernel) and ``ds = ((pd·dpd − p·delta)·scale)`` rounded to the
+    compute dtype, [B, H, L, L] (queries by keys) -- what
+    ``attention_bwd_dkdv`` writes to its scratch for ``dq = ds·k`` (whose
+    rows run to L rounded up to 64, the columns past L holding zeros)."""
+    q, _, _, p, pd, dpd, scale = _backward_terms(do, saved, num_heads, bias_row, seg_row,
+                                                 dropout_rate, dropout_seed, keep)
+    cdt = saved[0].dtype
+    B, L, H, D = q.shape
+    ds = ((pd * dpd - p * delta[..., None]) * scale).to(cdt)
+    dv = torch.einsum("bhlm,blhd->bmhd", pd.to(cdt).float(), do.reshape(B, L, H, D).float())
+    dk = torch.einsum("bhlm,blhd->bmhd", ds.float(), q.float())
+    return dk, dv, ds
+
+
+def attention_dq_plain(ds, saved, num_heads: int):
+    """The block backward's dq GEMM in plain PyTorch: ``dq = ds·k``
+    [B, L, H, D] fp32 from the ds of :func:`attention_dkdv_plain`."""
+    qkv, _, m, _ = saved
+    B, _, L = m.shape
+    P = qkv.shape[1] // 3
+    k = qkv[:, P:2 * P].reshape(B, L, num_heads, P // num_heads)
+    return torch.einsum("bhlm,bmhd->blhd", ds.float(), k.float())
+
+
 def attention_backward_plain(do, saved, num_heads: int, bias_row=None, seg_row=None,
                              dropout_rate: float = 0.0, dropout_seed=None, keep=None):
     """The attention part of K4's backward in plain PyTorch: ``(dqkv
@@ -361,19 +423,17 @@ def attention_backward_plain(do, saved, num_heads: int, bias_row=None, seg_row=N
     ``delta = Σ_j dpd·pd`` with the unrounded ``pd``;
     ``ds = ((pd·dpd − p·delta)·scale)`` rounded before ``dq = ds·k`` and
     ``dk = dsᵀ·q``."""
-    qkv, _, m, den = saved
+    qkv, _, m, _ = saved
     B, _, L = m.shape
     P = qkv.shape[1] // 3
     D = P // num_heads
     cdt = qkv.dtype
-    do = do.reshape(B, L, num_heads, D).float()
-    q, k, v, s = _scores(qkv, num_heads, bias_row, seg_row, B, L)
-    p = torch.exp(s - m[..., None]) / den[..., None]
-    pd = _drop(p, keep, dropout_rate, dropout_seed, B, num_heads, L)
-    dv = torch.einsum("bhlm,blhd->bmhd", pd.to(cdt).float(), do)
-    dpd = torch.einsum("blhd,bmhd->bhlm", do, v.float())
+    q, k, _, p, pd, dpd, scale = _backward_terms(do, saved, num_heads, bias_row, seg_row,
+                                                 dropout_rate, dropout_seed, keep)
+    dv = torch.einsum("bhlm,blhd->bmhd", pd.to(cdt).float(),
+                      do.reshape(B, L, num_heads, D).float())
     delta = (dpd * pd).sum(dim=-1, keepdim=True)
-    ds = ((pd * dpd - p * delta) * (1.0 / math.sqrt(D))).to(cdt).float()
+    ds = ((pd * dpd - p * delta) * scale).to(cdt).float()
     dq = torch.einsum("bhlm,bmhd->blhd", ds, k.float())
     dk = torch.einsum("bhlm,blhd->bmhd", ds, q.float())
     dqkv = torch.cat([t.reshape(B * L, P) for t in (dq, dk, dv)], dim=1).to(cdt)
@@ -529,7 +589,24 @@ def _launch_fwd(hidden, wqkv, bqkv, wo, bo, num_heads, bias_row, seg_row, rate, 
     return out, (qkv, ctx, m, l)
 
 
-def _launch_bwd(dout, hidden, wqkv, wo, saved, num_heads, bias_row, seg_row, rate, seed):
+def bwd_scratch(B: int, H: int, L: int, dtype, device, rate: float, seed):
+    """The CUDA-core backward's scratch, ``(ds, keep_bits)``: ds [B, H, Lp,
+    Lp] in ``dtype`` with Lp = L rounded up to the kernels' 64-row tile
+    (``ds_rows`` in ``csrc/attention_tiles.cuh``), written in full by the
+    dk/dv kernel; with dropout the delta pass's keep mask [B, H, Lp, Lp/64]
+    as 64-bit words (bit c of word t: key 64t + c), else None."""
+    Lp = -(-L // 64) * 64
+    ds = torch.empty((B, H, Lp, Lp), dtype=dtype, device=device)
+    on = _dropout_args(rate, seed)[0]
+    keep = torch.empty((B, H, Lp, Lp // 64), dtype=torch.int64, device=device) if on else None
+    return ds, keep
+
+
+def _launch_bwd(dout, hidden, wqkv, wo, saved, num_heads, bias_row, seg_row, rate, seed,
+                scratch: bool = False):
+    """K4 on CUDA tensors: ``(dx, dqkv)``, and with ``scratch`` also
+    ``(do, delta, ds)``, the intermediates it wrote on the way (for
+    checks)."""
     B, L, E = hidden.shape
     P = wo.shape[0]
     H = num_heads
@@ -545,15 +622,19 @@ def _launch_bwd(dout, hidden, wqkv, wo, saved, num_heads, bias_row, seg_row, rat
         _check_tma(E, wqkv=wqkv)  # dx = dqkv·Wqkvᵀ reads it through TMA
     do = torch.empty((B * L, P), dtype=cdt, device=dev)
     delta = torch.empty(stats, dtype=torch.float32, device=dev)
+    ds, keep_bits = bwd_scratch(B, H, L, cdt, dev, rate, seed)
     dqkv = torch.empty((B * L, 3 * P), dtype=cdt, device=dev)
     dx = torch.empty((B, L, E), dtype=cdt, device=dev)
-    fn = _entry("plbt_attention_block_bwd", 12, 6, _DROPOUT_ARGTYPES)
+    fn = _entry("plbt_attention_block_bwd", 14, 6, _DROPOUT_ARGTYPES)
     with torch.cuda.device(dev):
         status = fn(
             _ptr(dout), _ptr(wqkv), _ptr(wo), _ptr(qkv), _ptr(m), _ptr(l), _ptr(bias_row),
-            _ptr(seg_row), _ptr(do), _ptr(delta), _ptr(dqkv), _ptr(dx),
-            B, L, E, P, H, _DTYPE_CODES[cdt], *_dropout_args(rate, seed), _stream(dev),
+            _ptr(seg_row), _ptr(do), _ptr(delta), _ptr(ds), _ptr(keep_bits), _ptr(dqkv),
+            _ptr(dx), B, L, E, P, H, _DTYPE_CODES[cdt], *_dropout_args(rate, seed),
+            _stream(dev),
         )
     build.check(status, "attention_block backward kernel")
     LAUNCHES_BWD.add()
+    if scratch:
+        return dx, dqkv, (do, delta, ds)
     return dx, dqkv

@@ -171,15 +171,20 @@ def _launch_bwd(dout, q, k, v, bias_row, seg_row, dropout_rate, dropout_seed):
     _check_tma(q=q, k=k, v=v, dout=dout)
     dev = q.device
     dq, dk, dv = (torch.empty((B, L, H, D), dtype=q.dtype, device=dev) for _ in range(3))
-    # scratch: the recomputed row max and denominator, and delta
+    # scratch: the recomputed row max and denominator, and delta; in fp32
+    # the CUDA-core kernels' ds and keep bits (the bf16 ones keep both on
+    # the chip)
     m, den, delta = (torch.empty((B, H, L), dtype=torch.float32, device=dev) for _ in range(3))
-    fn = _entry("plbt_flash_attention_bwd", 12, 9)
+    ds = keep_bits = None
+    if q.dtype == torch.float32:
+        ds, keep_bits = ab.bwd_scratch(B, H, L, q.dtype, dev, dropout_rate, dropout_seed)
+    fn = _entry("plbt_flash_attention_bwd", 14, 9)
     with torch.cuda.device(dev):
         status = fn(
             ab._ptr(q), ab._ptr(k), ab._ptr(v), ab._ptr(dout), ab._ptr(bias_row),
-            ab._ptr(seg_row), ab._ptr(m), ab._ptr(den), ab._ptr(delta), ab._ptr(dq),
-            ab._ptr(dk), ab._ptr(dv), B, L, H, D, q.stride(1), k.stride(1), v.stride(1),
-            dout.stride(1), ab._DTYPE_CODES[q.dtype],
+            ab._ptr(seg_row), ab._ptr(m), ab._ptr(den), ab._ptr(delta), ab._ptr(ds),
+            ab._ptr(keep_bits), ab._ptr(dq), ab._ptr(dk), ab._ptr(dv), B, L, H, D, q.stride(1),
+            k.stride(1), v.stride(1), dout.stride(1), ab._DTYPE_CODES[q.dtype],
             *ab._dropout_args(dropout_rate, dropout_seed), ab._stream(dev),
         )
     build.check(status, "flash_attention backward kernel")

@@ -37,6 +37,7 @@ GROUPS = (
     ("gemm_bias_sm90<false>", "K3 projections (wgmma)"),
     ("gemm_bias_sm90<true>", "K4 dx projection (wgmma)"),
     ("gemm_bias<__nv_bfloat16, true>", "K4 do projection (CUDA cores)"),
+    ("attention_bwd_delta", "K4 attention backward: delta pass"),
     ("attention_bwd_dq", "K4 / K8 attention backward: dq"),
     ("attention_bwd_dkdv", "K4 / K8 attention backward: dk/dv"),
     ("_fwd_kernel", "K5 LN forward (Triton)"),

@@ -305,16 +305,82 @@ def test_bf16_backward_matches_plain(dev, D, L, segments, rate):
         _close(a, r, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("L", [1, 63, 65, 200, 512])
+@pytest.mark.parametrize("segments", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_core_backward_stages_match_plain(dev, dtype, D, L, segments, rate):
+    """K4's CUDA-core kernels stage by stage against their plain versions
+    on the same inputs, at ragged lengths (rows of length L, 5 and 0):
+    ``do`` (the register-blocked GEMM) bitwise the plain ``do`` in bf16,
+    delta (the delta pass) fed K4's ``do``, the ds scratch (the dk/dv
+    kernel) fed K4's ``do`` and delta, its padding zero, then dqkv and dx."""
+    H = 2
+    x, wqkv, bqkv, wo, bo, _, _, _ = _block_case(dev, dtype, 3, L, H * D, H)
+    _, _, _, _, bias_row, seg_row = _flash_case(dev, dtype, 3, L, H, segments, True, D,
+                                                lengths=[L, min(L, 5), 0])
+    seed = 17 if rate else None
+    keep = ab.dropout_mask(17, rate, 3, H, L, dev) if rate else None
+    _, saved = ab.train_forward(x, wqkv, bqkv, wo, bo, H, bias_row, seg_row, rate, seed)
+    dout = torch.randn(3, L, H * D, device=dev, generator=torch.Generator(dev).manual_seed(2))
+    dout = dout.to(dtype)
+    before = ab.LAUNCHES_BWD.count
+    dx, dqkv, (do, delta, ds) = ab._launch_bwd(dout, x, wqkv, wo, saved, H, bias_row, seg_row,
+                                               rate, seed, scratch=True)
+    args = (saved, H, bias_row, seg_row, rate, seed, keep)
+    rdx, rdqkv = ab.train_backward_plain(dout, x, wqkv, wo, saved, H, bias_row, seg_row, rate,
+                                         seed, keep=keep)
+    torch.cuda.synchronize()
+    assert ab.LAUNCHES_BWD.count == before + 1
+    # (bitwise only where cuBLAS also sums each output in one sequential
+    # chain: at the smoke's shape, the next test; small GEMMs it may split)
+    _close(do, (dout.reshape(3 * L, H * D).float() @ wo.float().T).to(dtype), dtype)
+    _close(delta, ab.attention_delta_plain(do, *args), torch.float32)
+    ref_ds = ab.attention_dkdv_plain(do, saved, delta, H, bias_row, seg_row, rate, seed,
+                                     keep)[2]
+    if L > 1:
+        _close(ds[:, :, :L, :L], ref_ds, dtype)
+    else:  # one key: ds = pd·dpd − p·delta with p = pd = 1, delta = dpd, is 0
+        assert ds[:, :, :1, :1].float().abs().max() <= 1e-6 >= ref_ds.float().abs().max()
+    assert not ds[:, :, :, L:].any() and not ds[:, :, L:, :].any()
+    for a, r in [(dqkv, rdqkv), (dx, rdx)]:
+        _close(a, r, dtype)
+
+
+def test_do_is_bitwise_the_plain_do_at_the_smokes_shape(dev):
+    """K4's ``do = dout·Woᵀ`` at the smoke's phase 10 shape ([8, 512, 768]
+    bf16): each output is one fmaf chain over the 768 inputs in order, the
+    bits of the plain version's cuBLAS fp32 GEMM."""
+    B, L, E, H = 8, 512, 768, 12
+    rng = np.random.default_rng(5)
+    t = lambda a, s=1.0: torch.from_numpy((a * s).astype(np.float32)).to(dev)  # noqa: E731
+    wqkv, bqkv = t(rng.standard_normal((E, 3 * E)), 0.05), t(rng.standard_normal(3 * E), 0.02)
+    wo, bo = t(rng.standard_normal((E, E)), 0.05), t(rng.standard_normal(E), 0.02)
+    wqkv, wo = wqkv.to(torch.bfloat16), wo.to(torch.bfloat16)
+    x = t(rng.standard_normal((B, L, E)), 0.5).to(torch.bfloat16)
+    valid = np.arange(L)[None] < np.array([512, 480, 384, 256, 128, 64, 5, 0])[:, None]
+    bias_row, _ = ab.rows(attention_bias_from_mask(t(valid)), None, B, L)
+    _, saved = ab.train_forward(x, wqkv, bqkv, wo, bo, H, bias_row, None)
+    dout = torch.randn(B, L, E, device=dev, generator=torch.Generator(dev).manual_seed(3))
+    dout = dout.to(torch.bfloat16)
+    *_, (do, _, _) = ab._launch_bwd(dout, x, wqkv, wo, saved, H, bias_row, None, 0.0, None,
+                                    scratch=True)
+    assert torch.equal(do, (dout.reshape(B * L, E).float() @ wo.float().T).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("segments", [False, True])
-def test_flash_backward_statistics_equal_the_block_forwards(dev, D, segments):
+def test_flash_backward_statistics_equal_the_block_forwards(dev, dtype, D, segments):
     """K8's first pass recomputes the row max and denominator with the
     forward's own functions: on views of K3's qkv they equal K3's saved m
-    and l bit for bit."""
+    and l bit for bit (bf16: the tensor-core kernels; fp32: the CUDA-core
+    delta pass against the fp32 forward)."""
     from pl_bert_tpu_torch.ops import flash_attention as fa
 
     B, L, H = 3, 200, 768 // D
-    x, wqkv, bqkv, wo, bo, _, bias_row, seg_row = _block_case(dev, torch.bfloat16, B, L, 768, H)
+    x, wqkv, bqkv, wo, bo, _, bias_row, seg_row = _block_case(dev, dtype, B, L, 768, H)
     seg_row = seg_row if segments else None
     _, (qkv, _, m, l) = ab.train_forward(x, wqkv, bqkv, wo, bo, H, bias_row, seg_row, 0.1, 3)
     q, k, v = (t.reshape(B, L, H, D) for t in qkv.reshape(B, L, 3 * H * D).split(H * D, dim=-1))

@@ -85,3 +85,40 @@ def test_bound_ms_takes_the_larger_of_operations_and_bytes(flops, nbytes, peak, 
 def test_block_bound_sums_the_parts():
     cost = smoke.block_cost(8, L, E, P, 2)
     assert smoke.block_bound(cost) == smoke.bound_ms(25_769_803_776, cost["bytes"])
+
+
+def test_cuda_core_backward_forms_seven_products_a_head():
+    """K4's CUDA-core plan at B=96: the delta pass forms q·k and do·vᵀ,
+    the dk/dv kernel q·k, do·vᵀ, pdᵀ·do and dsᵀ·q, the dq GEMM ds·k --
+    seven L²·D products a (batch, head), 2 FLOP each, where the gradient
+    needs five (the "attention" count)."""
+    M, heads = 96 * L, 12
+    cost = smoke.block_cost(96, L, E, P, 2, "backward_simt")
+    per_product = 2 * L * L * 64 * 96 * heads
+    formed = cost["formed"]
+    assert formed["delta"] == 2 * per_product
+    assert formed["dkdv"] == 4 * per_product
+    assert formed["dq"] == per_product
+    products = (formed["delta"] + formed["dkdv"] + formed["dq"]) / per_product
+    assert products == 7 <= 7
+    assert cost["attention"] == 5 * per_product
+    assert formed["do"] == 2 * M * E * P
+    # what the "backward" kind says of the block is unchanged
+    assert {k: v for k, v in cost.items() if k != "formed"} == smoke.block_cost(
+        96, L, E, P, 2, "backward")
+
+
+@pytest.mark.parametrize("part,flops,want_ms", [
+    # the attention's five products, 193 GFLOP, at the fp32 rate
+    ("attention", 10 * 49152 * 512 * 768, 2.8846),
+    # do = dout·Woᵀ, 58 GFLOP
+    ("do", 2 * 49152 * 768 * 768, 0.86539),
+])
+def test_cuda_core_bound_of_the_backward(part, flops, want_ms):
+    cost = smoke.block_cost(96, L, E, P, 2, "backward_simt")
+    got = cost["attention"] if part == "attention" else cost["formed"]["do"]
+    assert got == flops
+    nbytes = cost["attention_bytes"] if part == "attention" else cost["gemm_bytes"]
+    ms, by = smoke.bound_ms(got, nbytes, smoke.PEAK_FP32_FLOPS)
+    assert by == "operations"
+    assert ms == pytest.approx(want_ms, rel=1e-4)
