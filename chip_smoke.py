@@ -16,7 +16,10 @@ with random weights made from a fixed seed, in order:
    the attention pass (``attention_fwd_sm90``) and the backward's dq and
    dk/dv kernels (``attention_bwd_dq_sm90``, ``attention_bwd_dkdv_sm90``)
    in both libraries, and raises if any has no HGMMA; it prints what
-   ``ptxas -v`` said of their registers, shared memory and spills;
+   ``ptxas -v`` said of their registers, shared memory and spills, and of
+   the fused LN library's (K6, K9: ``csrc/fused_ln.cu``), and counts the
+   IMAD and LOP3 instructions one of K6's Philox draws issues (its SASS
+   with dropout less without, over the 24 draws a lane makes a row);
 3. holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes, in bf16 and fp32 (TF32 off); the block also
    at head_dim 128 (6 heads, L 200);
@@ -24,11 +27,16 @@ with random weights made from a fixed seed, in order:
 5. writes the weights as a reference .pth and starts the port's HTTP
    server through its normal entry, in a thread;
 6. answers 32 requests of 5-500 phonemes from 4 client threads and holds
-   each answer against a direct PhonemeEncoder call;
+   each answer against a direct PhonemeEncoder call; the same again from a
+   server at ``--pipeline_depth 1``; then prints the pipeline line: how
+   long a second ``dispatch`` holds its thread, how long before the end of
+   batch N+1's forward ``fetch(N)`` returns, and the request latency at
+   depth 1 and 2;
 7. checks from the launch counters that every forward of that run went
    through the kernels (12 attention blocks, 24 fused LNs a forward);
 8. times each kernel against its plain version, and the encoder forward
-   at B=8, L=512 on both paths; K1's projection GEMMs and attention pass
+   at B=8, L=512 on both paths, and K5 at [49152, 768] too (past the L2);
+   K1's projection GEMMs and attention pass
    each against its own bound (``torch.profiler``), and K2 (the fp32
    light forward) against its plain version and stock fp32 PyTorch;
 9. holds the attention block's training forward (K3) against its plain
@@ -45,7 +53,10 @@ with random weights made from a fixed seed, in order:
    for bit in bf16, and its delta and ds scratch are held against their
    plain versions fed K4's own ``do``;
 11. holds the fused LN backward (K6) against its plain version, dropout
-   0 and 0.1 (the mask from the kernels' ``tl.rand``);
+   0 and 0.1 (the mask from K5's ``tl.rand``), and K6's regenerated mask
+   against K5's bit for bit at [49152, 768] for seeds 0, 1, 2^31 - 2 and
+   one the training step draws (K6's dx is zero exactly where K5's mask
+   drops), with the plain ``tl_rand`` against Triton's uniform floats;
 12. checks the keep rate of every dropout site at the training shape
    (0.9 ± 1e-3) and that a seed gives the same mask twice;
 13. runs the train step (hidden 768, 12 heads, FFN 2048, 12 layers,
@@ -55,8 +66,10 @@ with random weights made from a fixed seed, in order:
    7e-5 — on the kernel path, 3 warm-up and 5 timed steps, with the
    launch counters read over the timed steps (per step: K3 12, K4 12,
    K5 24, K6 24, K1 0); then times K3, K4 and K6 at that shape against
-   their plain versions and the library calls (K3 also at dropout 0, and
-   its two parts against their bounds), and holds each against
+   their plain versions and the library calls (K3 and K6 also at dropout
+   0, K3's two parts against their bounds, K6's bound with its bytes,
+   fp32 and integer terms), checks that two K6 calls give the same bits
+   and holds each against
    its plain version there (K4 on K3's saved tensors, dropout 0.1 with
    the kernels' mask), as phases 9-11 do at B=8, K8's statistics bitwise
    K3's there too, and splits K4 into its projections and its delta,
@@ -70,8 +83,9 @@ with random weights made from a fixed seed, in order:
    bit for bit the plain Philox), views of one fused projection — at
    L = 200, at head_dim 128 ([8, 200, 6, 128]), and at the training shape
    [96, 512, 12, 64]; holds the copy anchor (K9) bitwise against its
-   plain version; times K7, K8 and K9 against their plain versions and
-   one library call each (K7 also at dropout 0), and splits K8 into its
+   plain version, also on a ragged count and an unaligned view; times
+   K7, K8 and K9 against their plain versions and one library call each
+   (K7 also at dropout 0), and splits K8 into its
    dq and dk/dv kernels;
 15. runs the 12-layer encoder on the flash path against the plain path
    and the block path (in phase 4), and serves 8 HTTP requests from a
@@ -154,6 +168,14 @@ TRAIN_TOL = {"loss": 5e-4, "grad_norm": 5e-3}
 KEEP_TOL = 1e-3
 # the H100's peak rates (NVIDIA's data sheet, SXM, dense) for the bounds
 PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# 32-bit integer results a clock an SM at compute capability 9.0, for
+# multiply-adds (IMAD, IMAD.HI, IMAD.WIDE) and for logic ops (LOP3) alike,
+# on two pipes (CUDA C++ Programming Guide, "Arithmetic Instructions",
+# throughput table); times the SMs and the card's max SM clock
+# (nvidia-smi clocks.max.sm) for the integer term of K6's bound
+INT_OPS_PER_SM_CLOCK = 64
+# K6's element draws a row per lane at H = 768: three slices of 8
+K6_DRAWS_PER_LANE_ROW = 24
 SEED = 0
 BUCKETS = (64, 128, 256)
 # name → (route, source, TPU kernel replaced, the path whose run counts it)
@@ -166,13 +188,13 @@ KERNELS = {
                               "pl_bert_tpu/ops/attention_block.py:116", "training"),
     "attention_block_bwd": ("cuda", "pl_bert_tpu_torch/csrc/attention_block.cu",
                             "pl_bert_tpu/ops/attention_block.py:315", "training"),
-    "dropout_add_layernorm_bwd": ("triton", "pl_bert_tpu_torch/ops/_ln_triton.py",
+    "dropout_add_layernorm_bwd": ("cuda", "pl_bert_tpu_torch/csrc/fused_ln.cu",
                                   "pl_bert_tpu/ops/fused_ln.py:88", "training"),
     "flash_attention": ("cuda", "pl_bert_tpu_torch/csrc/flash_attention.cu",
                         "pl_bert_tpu/ops/flash_attention.py:47", "packed_run"),
     "flash_attention_bwd": ("cuda", "pl_bert_tpu_torch/csrc/flash_attention.cu",
                             "pl_bert_tpu/ops/flash_attention.py:73", "packed_run"),
-    "add_copy": ("triton", "pl_bert_tpu_torch/ops/_ln_triton.py",
+    "add_copy": ("cuda", "pl_bert_tpu_torch/csrc/fused_ln.cu",
                  "tools/bench_fused_ln.py:110", "microbench"),
 }
 # the config of the packed run (phase 16), at the flagship width of
@@ -206,6 +228,15 @@ N_CLIENTS, PER_CLIENT = 4, 8
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def max_sm_clock_mhz() -> float:
+    """The card's max SM clock, MHz (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return float(out.splitlines()[0])
 
 
 def all_counters() -> tuple:
@@ -398,6 +429,70 @@ def phase_tensor_cores(build) -> None:
                 log(f"  ptxas {lib}: {label(func)}: {line.split(':', 1)[-1].strip()}")
 
 
+def ln_label(mangled: str) -> str:
+    """ln_bwd<bf16, 3, 1> (dtype, slices, dropout), add_copy<f32> or
+    ln_bwd_reduce from a mangled name of csrc/fused_ln.cu."""
+    import re
+
+    found = re.search(r"\d(ln_bwd_reduce|ln_bwd|add_copy)[EI]", mangled)
+    if not found:
+        return mangled
+    name = found.group(1)
+    if name == "ln_bwd_reduce":
+        return name
+    args = ["bf16" if "__nv_bfloat16" in mangled else "f32"]
+    if name == "ln_bwd":
+        args += re.findall(r"Li(\d+)E", mangled)[:1] + re.findall(r"Lb([01])E", mangled)[:1]
+    return f"{name}<{', '.join(args)}>"
+
+
+def phase_fused_ln_build(build) -> dict:
+    """2. the fused LN library (K6, K9): what ptxas said of each kernel's
+    registers, shared memory and spills; and the integer instructions one
+    Philox draw of K6 issues, from its SASS: IMAD (with IMAD.HI, IMAD.WIDE)
+    and LOP3 in the bf16 H = 768 kernel with dropout, less the one without,
+    over the 24 draws a lane makes a row. → {"imad": .., "lop3": ..} a draw."""
+    import re
+
+    func = None
+    for line in build.ptxas_report("fused_ln").splitlines():
+        found = re.search(r"(?:entry function|Function properties for) '?(\w+)", line)
+        if found:
+            func = found.group(1)
+        elif func and ("Used" in line or "spill" in line):
+            log(f"  ptxas fused_ln: {ln_label(func)}: {line.split(':', 1)[-1].strip()}")
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(build.build("fused_ln"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, func = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            func = found.group(1)
+            counts[func] = {"imad": 0, "lop3": 0}
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", line)
+        if func and op:
+            if op.group(1) == "IMAD":
+                counts[func]["imad"] += 1
+            elif op.group(1) == "LOP3":
+                counts[func]["lop3"] += 1
+    pick = {}
+    for f, c in counts.items():
+        name = ln_label(f)
+        if name in ("ln_bwd<bf16, 3, 1>", "ln_bwd<bf16, 3, 0>"):
+            pick[name[-2]] = c
+    if set(pick) != {"0", "1"}:
+        raise AssertionError(f"fused_ln: no bf16 H=768 ln_bwd pair in the SASS: "
+                             f"{[ln_label(f) for f in counts]}")
+    per_draw = {k: (pick["1"][k] - pick["0"][k]) / K6_DRAWS_PER_LANE_ROW for k in ("imad", "lop3")}
+    log(f"  SASS ln_bwd<bf16, 3>: with dropout {pick['1']}, without {pick['0']}: "
+        f"{per_draw['imad']:.2f} IMAD and {per_draw['lop3']:.2f} LOP3 a Philox draw")
+    if per_draw["imad"] <= 0:
+        raise AssertionError("fused_ln: the dropout kernel issues no more IMAD than the other")
+    return per_draw
+
+
 def phase_kernels(torch, cfg, results: dict) -> None:
     """3. each kernel against its plain version on the card."""
     import numpy as np
@@ -526,22 +621,24 @@ def phase_encoder(torch, cfg, sd) -> dict:
 
 
 def phase_serve(torch, cfg, sd, workdir: str, impl: str = "auto",
-                per_client: int = PER_CLIENT) -> tuple[dict, dict]:
+                per_client: int = PER_CLIENT, depth: int = 2) -> tuple[dict, dict]:
     """5-7. serve through the port's entry, check answers and counters.
     ``impl`` "pallas" (phase 15) starts the server with a config that
-    asks for the per-head flash path."""
+    asks for the per-head flash path; ``depth`` is its
+    ``--pipeline_depth`` (2, the server's default, or 1)."""
     import numpy as np
 
     from pl_bert_tpu_torch.models.inference import PhonemeEncoder
     from pl_bert_tpu_torch.serving.server import build_server, serve_in_thread
 
     log(f"phase 5: reference .pth + the port's HTTP server in a thread "
-        f"(attention_impl {impl})")
+        f"(attention_impl {impl}, pipeline_depth {depth})")
     ckpt = os.path.join(workdir, "step_0.pth")
     torch.save({"net": {f"encoder.{k}": v for k, v in sd.items()}, "step": 0,
                 "epoch": 0}, ckpt)
     argv = ["--checkpoint", ckpt, "--port", "0", "--max_batch", str(MAX_BATCH),
-            "--buckets", ",".join(map(str, BUCKETS)), "--device", DEV]
+            "--buckets", ",".join(map(str, BUCKETS)), "--device", DEV,
+            "--pipeline_depth", str(depth)]
     config_path = None
     if impl != "auto":  # the default config is the flagship model on the block path
         config_path = os.path.join(workdir, f"serve_{impl}.yml")
@@ -594,6 +691,7 @@ def phase_serve(torch, cfg, sd, workdir: str, impl: str = "auto",
         server.batcher.close()
         server.server_close()
     forwards = warm + stats["batches"]
+    stats["wall_s"] = wall
     log(f"  answered {len(answers)} in {wall:.2f} s: {stats['batches']} batches, "
         f"mean batch {stats['mean_batch_size']:.2f}, p50 "
         f"{stats['latency_ms']['p50']:.1f} ms, p95 {stats['latency_ms']['p95']:.1f} ms; "
@@ -624,6 +722,68 @@ def phase_serve(torch, cfg, sd, workdir: str, impl: str = "auto",
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
     return launches, stats
+
+
+def pipeline_probe(torch, enc, texts, rounds: int = 10) -> dict:
+    """6. the serving pipeline's stream order on ``enc``: batch N
+    dispatched, then N+1, then N fetched. Medians over ``rounds``
+    of: how long the second ``dispatch`` held the calling thread; how long
+    before the end of N+1's forward (an event recorded right after its
+    dispatch) ``fetch(N)`` returned (0: not before; it waited for N+1); and
+    the share of rounds in which N+1's forward was still running when it
+    did."""
+    import statistics
+
+    for _ in range(3):
+        enc(texts)
+    torch.cuda.synchronize()
+    blocked, early, running = [], [], []
+    for _ in range(rounds):
+        first = enc.dispatch(texts)
+        t0 = time.perf_counter()
+        second = enc.dispatch(texts)
+        t1 = time.perf_counter()
+        end = torch.cuda.Event()
+        end.record()  # the end of N+1's forward on the compute stream
+        enc.fetch(first)
+        t2 = time.perf_counter()
+        running.append(not end.query())
+        end.synchronize()
+        t3 = time.perf_counter()
+        enc.fetch(second)
+        blocked.append((t1 - t0) * 1e3)
+        early.append((t3 - t2) * 1e3)
+    return {"dispatch_blocked_ms": statistics.median(blocked),
+            "fetch_before_next_end_ms": statistics.median(early),
+            "fetch_returned_while_next_ran": sum(running) / rounds}
+
+
+def phase_pipeline(torch, cfg, sd, enc, by_depth: dict) -> dict:
+    """6. the pipeline probe on the block-path bf16 encoder at B=8, where
+    the host's enqueue of a forward outlasts its kernels, and at B=64,
+    where the kernels outlast the enqueue and the stream order shows;
+    beside the request latency of phase 6's 32 requests at depth 1 and 2."""
+    import numpy as np
+
+    from pl_bert_tpu_torch.models.inference import PhonemeEncoder
+
+    rng = np.random.default_rng(SEED + 8)
+    big = PhonemeEncoder(sd, cfg, 512, mixed_precision="bf16", batch_size=64, device=DEV)
+    probes = {}
+    for B, encoder in ((MAX_BATCH, enc), (64, big)):
+        probes[B] = pipeline_probe(torch, encoder, [phoneme_text(rng, 512) for _ in range(B)])
+    del big
+    lat = {d: (st["latency_ms"]["p50"], st["latency_ms"]["p95"], st["wall_s"])
+           for d, st in by_depth.items()}
+    for B, probe in probes.items():
+        log(f"phase 6: pipeline, B={B} L=512 bf16: the second dispatch held its thread "
+            f"{probe['dispatch_blocked_ms']:.3f} ms; fetch(N) returned "
+            f"{probe['fetch_before_next_end_ms']:.3f} ms before N+1's forward ended (N+1 still "
+            f"running at {probe['fetch_returned_while_next_ran']:.0%} of returns)")
+    log("phase 6: request latency over the 32 requests, "
+        + "; ".join(f"depth {d}: p50 {p50:.1f} ms, p95 {p95:.1f} ms, all in {w:.2f} s"
+                    for d, (p50, p95, w) in sorted(lat.items())))
+    return {"probes": probes, "latency": lat}
 
 
 def phase_timing(torch, cfg, encoders) -> dict:
@@ -718,6 +878,18 @@ def phase_timing(torch, cfg, encoders) -> dict:
         extra = (f", library {library[name]:.4f} ms, bound {bounds[name][0]:.4f} ms "
                  f"({bounds[name][1]})" if name in library else "")
         log(f"  {name}: kernel {k:.4f} ms, plain {p:.4f} ms{extra}")
+    # K5 at the training shape too: its 226 MB do not fit in the 50 MB L2,
+    # so its share of the bytes bound is one of device memory (the serving
+    # shape's 18.9 MB stay in L2 under graph replay)
+    Nt = 96 * 512
+    xt, rt = (torch.from_numpy(rng.standard_normal((Nt, E), dtype=np.float32)).to(
+        DEV, torch.bfloat16) for _ in range(2))
+    k5 = {r: graph_ms(torch, lambda r=r: fused_ln.dropout_add_layernorm(
+        xt, rt, ln["g"], ln["b"], seed=7 if r else None, rate=r), 20) for r in (0.0, 0.1)}
+    bound5 = bound_ms(10.0 * Nt * E, 3 * Nt * E * 2, PEAK_FP32_FLOPS)
+    log(f"  dropout_add_layernorm [{Nt}, {E}]: kernel {k5[0.0]:.4f} ms at dropout 0, "
+        f"{k5[0.1]:.4f} ms at dropout 0.1, bound {bound5[0]:.4f} ms ({bound5[1]}), "
+        f"{bound5[0] / k5[0.0]:.1%} of it at dropout 0")
     return {"times": times, "library": library, "bounds": bounds}
 
 
@@ -992,6 +1164,8 @@ def phase_train_kernels(torch, cfg, results: dict) -> None:
                 gate(f"K6 {name} {dname} dropout {rate}", err,
                      TOL[dname] if a.dtype == dtype else TOL_GRAD[dname])
 
+    hold_k6_mask(torch, dev)
+
     Bt = 96
     log(f"phase 12: dropout keep rates at the training shape (B={Bt}, rate 0.1)")
     rate = 0.1
@@ -1012,7 +1186,56 @@ def phase_train_kernels(torch, cfg, results: dict) -> None:
         del first, again, other
 
 
-def phase_train(torch, results: dict) -> tuple[dict, dict, dict]:
+def hold_k6_mask(torch, dev) -> None:
+    """11. K6 regenerates K5's dropout mask bit for bit: at [49152, 768],
+    rate 0.1, for seeds 0, 1, 2^31 - 2 and one the training step draws,
+    K6's dx is zero exactly where K5's ``tl.rand`` mask (a Triton kernel)
+    drops or dres is zero; and the plain ``tl_rand`` equals Triton's
+    uniform floats at the first 4096 offsets, bitwise."""
+    from pl_bert_tpu_torch.models.albert import draw_dropout_seeds
+    from pl_bert_tpu_torch.ops import fused_ln
+
+    shape, rate = (96 * 512, 768), 0.1
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x, res, dy = (torch.randn(shape, generator=gen, device=dev).bfloat16() for _ in range(3))
+    gamma = torch.ones(shape[1], device=dev)
+    drawn = draw_dropout_seeds(torch.Generator().manual_seed(SEED), 1)[1]
+    for seed in (0, 1, fused_ln.SEED_MAX, drawn):
+        dx, dres, _, _ = fused_ln.dropout_add_layernorm_bwd(dy, x, res, gamma, seed, rate)
+        k5 = fused_ln.dropout_mask(shape, seed, rate, dev).bool()
+        same = torch.equal(dx != 0, k5 & (dres != 0))
+        u = fused_ln.triton_rand(4096, seed, dev).cpu()
+        plain = fused_ln.tl_rand(seed, torch.arange(4096))
+        log(f"  K6's dx is zero where K5's tl.rand mask drops, seed {seed}, {list(shape)}: "
+            f"{same} (K5 kept {float(k5.float().mean()):.5f}); plain tl_rand == Triton's at "
+            f"offsets 0-4095: {torch.equal(u, plain)}; tl.rand at offsets 0-3: "
+            f"{[float(v) for v in u[:4]]}")
+        if not same or not torch.equal(u, plain):
+            raise AssertionError(f"K6's dropout mask is not K5's at seed {seed}")
+        del dx, dres, k5
+
+
+def ln_bwd_bound(N: int, H: int, itemsize: int, draws: int, per_draw: dict, sms: int,
+                 clock_mhz: float):
+    """K6's bound → (ms, "bytes" or "operations", {term: ms}): the largest
+    of the bytes it must move (x, the residual and dy read, dx and dres
+    written: 5·N·H·itemsize) over 3.35 TB/s; its ~20 fp32 operations an
+    element over 67 TFLOP/s; and its ``draws`` Philox draws' integer
+    instructions, the busier of the IMAD and LOP3 pipes (``per_draw``,
+    counted in its SASS), over ``INT_OPS_PER_SM_CLOCK`` × ``sms`` × the
+    max SM clock."""
+    terms = {
+        "bytes": 5 * N * H * itemsize / PEAK_BYTES * 1e3,
+        "fp32": 20.0 * N * H / PEAK_FP32_FLOPS * 1e3,
+        "integer": draws * max(per_draw.values())
+        / (INT_OPS_PER_SM_CLOCK * sms * clock_mhz * 1e6) * 1e3,
+    }
+    by = max(terms, key=terms.get)
+    return terms[by], "bytes" if by == "bytes" else "operations", terms
+
+
+def phase_train(torch, results: dict, k6_per_draw: dict,
+                clock_mhz: float) -> tuple[dict, dict, dict]:
     """13. the train step: kernel path against plain path, then bench.py's
     workload on the kernel path, with the launch counters; then K3, K4
     and K6 timed at that workload's shapes and held against their plain
@@ -1197,19 +1420,41 @@ def phase_train(torch, results: dict) -> tuple[dict, dict, dict]:
         torch, lambda: fused_ln.dropout_add_layernorm_bwd_plain(dy, xl, res, gamma, seed, rate),
         lambda: fused_ln.dropout_add_layernorm_bwd(dy, xl, res, gamma, seed, rate), iters=10,
     )
+    # K6 again at dropout 0 (no Philox draws), beside its library call,
+    # which does no dropout either
+    k6_0 = time_ms(torch, lambda: fused_ln.dropout_add_layernorm_bwd(dy, xl, res, gamma), 10)
     keep = fused_ln.dropout_mask((N, E), seed, rate, DEV)
     got = fused_ln.dropout_add_layernorm_bwd(dy, xl, res, gamma, seed, rate)
     ref = fused_ln.dropout_add_layernorm_bwd_plain(dy, xl, res, gamma, seed, rate, keep=keep)
     for name, a, r in zip(("dx", "dres", "dgamma", "dbeta"), got, ref):
         hold(results, "dropout_add_layernorm_bwd", f"K6 {name} [{N}, {E}] bf16 dropout {rate}",
              a, r, TOL["bfloat16"] if a.dtype == dt else TOL_GRAD["bfloat16"])
-    del keep, got, ref
-    bounds["dropout_add_layernorm_bwd"] = bound_ms(20.0 * N * E, 5 * N * E * 2, PEAK_FP32_FLOPS)
+    # no float atomics in the dgamma/dbeta sums: a second call, same bits
+    again = fused_ln.dropout_add_layernorm_bwd(dy, xl, res, gamma, seed, rate)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"  K6 [{N}, {E}] dropout {rate}: a second call gives the same dx, dres, dgamma "
+        f"and dbeta bits: {same}")
+    if not same:
+        raise AssertionError("K6: two calls on the same inputs differ")
+    del keep, got, ref, again
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bound6 = ln_bwd_bound(N, E, 2, N * E, k6_per_draw, sms, clock_mhz)
+    bound6_0 = ln_bwd_bound(N, E, 2, 0, k6_per_draw, sms, clock_mhz)
+    bounds["dropout_add_layernorm_bwd"] = bound6[:2]
+    log(f"  dropout_add_layernorm_bwd [{N}, {E}] bound terms: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in bound6[2].items())
+        + f" ({N * E} draws, {max(k6_per_draw.values()):.2f} integer instructions a draw on "
+        f"the busier pipe, {INT_OPS_PER_SM_CLOCK} a clock an SM x {sms} SMs x {clock_mhz:.0f} MHz)")
     yg = (xl + res).requires_grad_()
     gg, bg = gamma.to(dt).requires_grad_(), beta.to(dt).requires_grad_()
     ln_out = F.layer_norm(yg, (E,), gg, bg, mp.layer_norm_eps)
     library["dropout_add_layernorm_bwd"] = time_ms(
         torch, lambda: torch.autograd.grad(ln_out, [yg, gg, bg], dy, retain_graph=True), 10)
+    k6_1 = times["dropout_add_layernorm_bwd"][0]
+    log(f"  dropout_add_layernorm_bwd [{N}, {E}]: kernel {k6_0:.4f} ms at dropout 0 (bound "
+        f"{bound6_0[0]:.4f} ms, {bound6_0[0] / k6_0:.1%} of it; library "
+        f"{library['dropout_add_layernorm_bwd']:.4f} ms), {k6_1:.4f} ms at dropout {rate} "
+        f"(bound {bound6[0]:.4f} ms, {bound6[0] / k6_1:.1%} of it)")
     for name, (k, p) in times.items():
         log(f"  {name}: kernel {k:.4f} ms, plain {p:.4f} ms, library {library[name]:.4f} ms, "
             f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
@@ -1306,6 +1551,20 @@ def phase_flash_kernels(torch, cfg, results: dict) -> dict:
         log(f"  K9 add_copy [{N}, {E}] {dtype}: bitwise {bool(torch.equal(got, want))}")
         if got.dtype != dtype or not torch.equal(got, want):
             raise AssertionError(f"K9 add_copy {dtype} differs from its plain version")
+        # a count that is no whole number of 16-byte vectors (1001 x 769),
+        # and views one element past an aligned base (the scalar loop)
+        n = 1001 * 769
+        flat = [f32(rng.standard_normal(n + 1)).to(dtype) for _ in range(2)]
+        for label, xv, rv in (("ragged", flat[0][:n], flat[1][:n]),
+                              ("unaligned view", flat[0][1:], flat[1][1:])):
+            xv, rv = xv.view(1001, 769), rv.view(1001, 769)
+            got = fused_ln.add_copy(xv, rv)
+            want = fused_ln.add_copy_plain(xv, rv)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(got, want))
+            log(f"  K9 add_copy [1001, 769] {label} {dtype}: bitwise {same}")
+            if not same:
+                raise AssertionError(f"K9 add_copy {label} {dtype} differs from its plain version")
 
     log("phase 14: K7 and K8 timed, bf16, dropout 0.1, full-length rows, no segments: device "
         "time from a replayed CUDA graph at B=8, CUDA events over back-to-back calls at B=96")
@@ -1513,6 +1772,7 @@ def main() -> int:
     build.import_triton()
     log(f"  built in {time.perf_counter() - t0:.1f} s (Triton compiles at first launch)")
     phase_tensor_cores(build)
+    k6_per_draw = phase_fused_ln_build(build)
 
     cfg = AlbertConfig()  # the flagship model of configs/config.yml
     results = {name: [] for name in KERNELS}
@@ -1520,7 +1780,10 @@ def main() -> int:
     sd = random_state_dict(torch, cfg, SEED)
     encoders = phase_encoder(torch, cfg, sd)
     with tempfile.TemporaryDirectory() as workdir:
-        serve_launches, _ = phase_serve(torch, cfg, sd, workdir)
+        serve_launches, stats2 = phase_serve(torch, cfg, sd, workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        _, stats1 = phase_serve(torch, cfg, sd, workdir, depth=1)
+    phase_pipeline(torch, cfg, sd, encoders["bf16", "auto"], {1: stats1, 2: stats2})
     with tempfile.TemporaryDirectory() as workdir:
         log("phase 15: 8 requests from a server started with attention_impl pallas")
         phase_serve(torch, cfg, sd, workdir, impl="pallas", per_client=2)
@@ -1529,7 +1792,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_kernels(torch, cfg, results)
     flash = phase_flash_kernels(torch, cfg, results)
-    train, train_launches, training = phase_train(torch, results)
+    train, train_launches, training = phase_train(torch, results, k6_per_draw,
+                                                  max_sm_clock_mhz())
     with tempfile.TemporaryDirectory() as workdir:
         run, run_launches = phase_packed_run(torch, workdir)
     bench_launches = phase_microbench(torch)

@@ -7,6 +7,14 @@ surface (fixed batch padding, ``seq_buckets``, ``swap_params``,
 hand-written attention-block and fused-LN kernels on a CUDA device; on
 the CPU it runs their plain versions.
 
+On a CUDA device ``dispatch``/``fetch`` keep the stream order that lets
+the serving batcher's ``pipeline_depth`` 2 overlap two batches, as JAX's
+asynchronous dispatch does: the ids and mask go up from pinned host
+buffers without waiting for the device, and each batch's hidden states
+come down on a copy stream of the encoder's own, behind an event at the
+end of that batch's forward and before the next batch's, so ``fetch``
+waits for its own batch and nothing else.
+
 Weights come from a reference ``.pth`` (``export/bridge.py``), never
 from orbax or an HF directory.
 """
@@ -29,6 +37,11 @@ def _device(device) -> torch.device:
             "run the plain path on the CPU"
         )
     return dev
+
+
+def _copy_stream(device: torch.device):
+    """The stream a CUDA encoder copies its results down on (None off CUDA)."""
+    return torch.cuda.Stream(device) if device.type == "cuda" else None
 
 
 class PhonemeEncoder:
@@ -83,6 +96,7 @@ class PhonemeEncoder:
                 buckets.append(max_seq_length)
             seq_buckets = tuple(buckets)
         self.seq_buckets = seq_buckets
+        self._copy_stream = _copy_stream(self.device)
 
     def swap_params(self, new_state_dict: dict) -> None:
         """Adopt ``new_state_dict`` for every forward AFTER this call —
@@ -120,6 +134,7 @@ class PhonemeEncoder:
         c.__dict__.update(self.__dict__)
         c.device = _device(device)
         c.weights = move_weights(self.weights, c.device)
+        c._copy_stream = _copy_stream(c.device)
         return c
 
     # --- constructors ------------------------------------------------------
@@ -188,26 +203,73 @@ class PhonemeEncoder:
         batcher calls this from its own worker thread."""
         weights = self.weights  # read once: a concurrent swap rebinds it
         with torch.inference_mode():
-            ids_t = torch.as_tensor(np.asarray(ids)).to(self.device)
-            mask_t = torch.as_tensor(np.asarray(mask)).to(self.device)
+            ids_t = self._upload(ids)
+            mask_t = self._upload(mask)
             hidden, _ = self.model(ids_t, mask_t, weights=weights)
         return hidden
+
+    def _upload(self, array) -> torch.Tensor:
+        """A host array on the device. To a CUDA device through a pinned
+        buffer, without waiting: a copy from pageable memory would hold
+        the calling thread until the stream's earlier work (the previous
+        batch's forward) had finished. The caching host allocator keeps
+        the buffer until its copy has run."""
+        host = torch.as_tensor(np.asarray(array))
+        if self.device.type != "cuda":
+            return host.to(self.device)
+        pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        pinned.copy_(host)
+        return pinned.to(self.device, non_blocking=True)
 
     def dispatch(self, phoneme_strings: list[str]):
         """Host encode + launch the forward WITHOUT waiting for it:
         kernels are queued on the current stream and this returns.
         Pair with :meth:`fetch` — the split lets a serving loop overlap
         batch N+1's forward with batch N's device→host copy
-        (serving/batcher.py ``pipeline_depth``)."""
+        (serving/batcher.py ``pipeline_depth``). On a CUDA device the
+        copy of the ``n`` real rows is queued here too, on the encoder's
+        copy stream behind an event at the end of this forward."""
         ids, mask, lengths = self.encode_batch(phoneme_strings)
-        return self.forward(ids, mask), lengths, len(phoneme_strings)
+        n = len(phoneme_strings)
+        hidden = self.forward(ids, mask)
+        if self._copy_stream is None:
+            return hidden, lengths, n
+        return self._copy_out(hidden, n), lengths, n
+
+    def _copy_out(self, hidden: torch.Tensor, n: int):
+        """Queue the fp32 copy of ``hidden[:n]`` into pinned host memory
+        on the copy stream, after the forward that writes ``hidden`` and
+        nothing later; → (host tensor, event recorded after the copy).
+        The host buffer has the whole batch's shape, so the caching host
+        allocator serves every call of a bucket from the same size class
+        (a new pinned allocation costs milliseconds)."""
+        forward_done = torch.cuda.Event()
+        forward_done.record(torch.cuda.current_stream(self.device))
+        stream = self._copy_stream
+        with torch.cuda.stream(stream), torch.inference_mode():
+            stream.wait_event(forward_done)
+            rows = hidden[:n].float()
+            host = torch.empty(hidden.shape, dtype=torch.float32, pin_memory=True)[:n]
+            host.copy_(rows, non_blocking=True)
+            # hidden was made on the compute stream: its memory must not
+            # go back to that stream's pool before this copy has read it
+            hidden.record_stream(stream)
+            copied = torch.cuda.Event()
+            copied.record(stream)
+        return host, copied
 
     @staticmethod
     def fetch(handle) -> tuple[np.ndarray, np.ndarray]:
-        """Wait for a :meth:`dispatch` handle's forward and return
-        ``(hidden [B, L, H] fp32, lengths [B])`` on the host."""
-        hidden, lengths, n = handle
-        return hidden[:n].float().cpu().numpy(), lengths
+        """Wait for a :meth:`dispatch` handle's batch and return
+        ``(hidden [B, L, H] fp32, lengths [B])`` on the host. On a CUDA
+        device this waits for that batch's copy alone, not for forwards
+        dispatched after it."""
+        out, lengths, n = handle
+        if isinstance(out, torch.Tensor):  # the CPU: the forward, synchronous
+            return out[:n].float().cpu().numpy(), lengths
+        host, copied = out
+        copied.synchronize()
+        return host.numpy(), lengths
 
     def __call__(self, phoneme_strings: list[str]) -> tuple[np.ndarray, np.ndarray]:
         """→ (hidden_states [B, L, H] fp32, lengths [B]); B is the number

@@ -132,7 +132,7 @@ def _mulhilo(m: int, c):
 def philox_bits(seed: int, stream, q, k):
     """First word of Philox4x32-10 at counter (q, k, 0, 0) under key
     (seed, stream) — the function ``philox_word0`` of
-    ``csrc/attention_block.cu``, on broadcastable int64 tensors."""
+    ``csrc/philox.cuh``, on broadcastable int64 tensors (or ints)."""
     c0, c1 = q & _MASK32, k & _MASK32
     c2 = torch.zeros_like(c0)
     c3 = torch.zeros_like(c0)

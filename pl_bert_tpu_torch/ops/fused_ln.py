@@ -1,37 +1,43 @@
 """Fused dropout + residual add + LayerNorm, forward and backward, as
-Triton kernels for Hopper.
+hand-written kernels for Hopper: the forward in Triton, the backward in
+CUDA C++.
 
 Replaces the Pallas kernels of ``pl_bert_tpu/ops/fused_ln.py``, which
 each ALBERT layer runs twice (after the attention block and after the
 FFN): the forward ``_fwd_kernel`` (:72-85, via ``_fused_fwd`` :132-145),
-K5, and the backward ``_bwd_kernel`` (:88-115, via ``_fused_bwd``
-:148-170), K6. :class:`DropoutAddLayerNormFunction` joins them under
-autograd.
+K5, in ``ops/_ln_triton.py``; and the backward ``_bwd_kernel`` (:88-115,
+via ``_fused_bwd`` :148-170), K6, in ``csrc/fused_ln.cu``, whose header
+says what bounds it and how it is laid out (a warp a row, the row sums
+in warp shuffles, dγ/dβ partials in registers, reduced in a fixed
+order). :class:`DropoutAddLayerNormFunction` joins them under autograd.
 
 What bounds them on the card: the forward reads x, the residual and γ/β
 and writes the output once; the backward reads x, the residual and the
 output gradient and writes dx and dres — 3 to 5 × rows × H × itemsize
-bytes for ~10-20 flops per element — so both are bound by device-memory
-bandwidth. Each makes one pass with the row statistics in registers; the
-backward regenerates the dropout mask and recomputes the statistics
-instead of reading saved ones. Triton is the route because the work is
-a row reduction plus an elementwise pass. Differences from the TPU:
+bytes for ~10-20 flops per element — so device-memory bandwidth bounds
+both, and with dropout the backward's Philox draws are work of the same
+order on the integer units. Each makes one pass with the row statistics
+in registers; the backward regenerates the dropout mask and recomputes
+the statistics instead of reading saved ones. Differences from the TPU:
 
-- one program per block of rows with the ragged tail masked, so the
-  ``rows % 256`` and ``H % 128`` refusals (fused_ln.py:200-207) are gone;
+- any row count, so the ``rows % 256`` and ``H % 128`` refusals
+  (fused_ln.py:200-207) are gone; the backward takes a width that is a
+  multiple of 8 up to 1024 (its 16-byte loads), and raises on others;
 - dropout keeps an element where ``tl.rand(seed, offset) >= rate``
-  (Philox, keyed by the seed and the element's flat int32 index), scaled
-  by 1/(1-rate); the TPU drew its own hardware bits, so masks differ;
-- the backward's programs each walk many row blocks and write one fp32
-  partial sum of dγ and dβ, reduced outside (the TPU wrote one per
-  block, :104-105, :168-169).
+  (Triton's Philox, keyed by the seed and the element's flat int32
+  index), scaled by 1/(1-rate); the backward draws the same bits in CUDA
+  (:func:`tl_rand` is the same draw in plain PyTorch); the TPU drew its
+  own hardware bits, so masks differ from JAX's;
+- the backward's blocks each write one fp32 partial row of dγ and dβ,
+  summed in a fixed order by a second small kernel in the same call (the
+  TPU wrote one per block, :104-105, :168-169, reduced outside).
 
-:func:`add_copy` (K9) replaces the copy anchor of
-``tools/bench_fused_ln.py`` (``_copy_kernel`` :110-113 via ``copy_op``
-:115-127): ``(fp32(x) + fp32(res))`` cast back, over K5's row blocks —
-K5's traffic with none of its arithmetic, so the bytes bound it
-(3 × rows × H × itemsize). ``pl_bert_tpu_torch/tools/bench_fused_ln.py``
-times K5 against it.
+:func:`add_copy` (K9, CUDA C++ in the same file) replaces the copy anchor
+of ``tools/bench_fused_ln.py`` (``_copy_kernel`` :110-113 via ``copy_op``
+:115-127): ``(fp32(x) + fp32(res))`` cast back over the flat elements in
+16-byte vectors — K5's traffic (3 × rows × H × itemsize) with none of its
+work, the card's floor for that traffic.
+``pl_bert_tpu_torch/tools/bench_fused_ln.py`` times K5 against it.
 
 The plain versions are the same functions in plain PyTorch; a wrapper
 takes them for CPU tensors only. On the CPU the dropout mask comes from a
@@ -42,10 +48,12 @@ draw the same one); a ``keep`` argument substitutes the kernels' mask
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
+from pl_bert_tpu_torch.ops import attention_block as ab
 from pl_bert_tpu_torch.runtime import build
 
 LAUNCHES = build.LaunchCounter("dropout_add_layernorm")  # K5
@@ -53,8 +61,47 @@ LAUNCHES_BWD = build.LaunchCounter("dropout_add_layernorm_bwd")  # K6
 LAUNCHES_COPY = build.LaunchCounter("add_copy")  # K9
 
 
+# K6's widths: 16-byte loads of 8 elements, at most four 256-column slices a lane
+BWD_MAX_WIDTH = 1024
+# the seeds whose regenerated masks are held against K5's on the card
+# (models/albert.py draws them in [0, 2^31 - 1))
+SEED_MAX = 2**31 - 2
+# triton/language/random.py, uint_to_uniform_float: the int32 scale
+_TL_RAND_SCALE = 4.6566127342e-10
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_M32 = 0xFFFFFFFF
+
+
 def _seed_int(seed) -> int:
     return int(seed.reshape(-1)[0]) if isinstance(seed, torch.Tensor) else int(seed)
+
+
+def _checked_seed(seed) -> int:
+    s = _seed_int(seed)
+    if not 0 <= s <= SEED_MAX:
+        raise ValueError(f"fused LN backward takes dropout seeds in [0, {SEED_MAX}], got {s}")
+    return s
+
+
+def tl_rand(seed: int, offsets):
+    """Triton's ``tl.rand(seed, offsets)`` in plain PyTorch (fp32 in [0,
+    1)): Philox4x32-10 (:func:`attention_block.philox_bits`) under key
+    (seed's low word, its high word) at counter (offset, 0, 0, 0), the
+    first word read as int32, ``x < 0 → −x − 1``, times 4.6566127342e-10
+    in fp32 — ``triton/language/random.py``'s ``rand``, ``randint``,
+    ``philox`` and ``uint_to_uniform_float``. ``offsets``: an int tensor
+    of flat element offsets (int32 in the kernels)."""
+    seed = int(seed)
+    bits = ab.philox_bits(seed & _M32, seed >> 32, offsets.to(torch.int64) & _M32, 0)
+    v = torch.where(bits >= 2**31, bits - 2**32, bits)
+    v = torch.where(v < 0, -v - 1, v)
+    return v.to(torch.float32) * torch.tensor(_TL_RAND_SCALE, dtype=torch.float32)
+
+
+def tl_rand_keep(seed: int, offsets, rate: float):
+    """K5's keep decision ``tl.rand(seed, offset) >= rate``, compared in
+    fp32 as the kernels compare it; the mask K6 regenerates."""
+    return tl_rand(seed, offsets) >= torch.tensor(rate, dtype=torch.float32)
 
 
 def _triton_ln():
@@ -151,32 +198,85 @@ def dropout_add_layernorm_bwd(
         return dropout_add_layernorm_bwd_plain(dy, x, residual, gamma, seed, rate, eps)
     _check_cuda(x, ("residual", residual), ("gamma", gamma), ("dy", dy))
     H = x.shape[-1]
-    x2 = x.reshape(-1, H).contiguous()
-    r2 = residual.reshape(-1, H).contiguous()
-    dy2 = dy.reshape(-1, H).to(x.dtype).contiguous()
+    if x.dtype not in _DTYPE_CODES or residual.dtype != x.dtype:
+        raise TypeError(f"fused LN backward takes float32/bfloat16 x and residual alike, "
+                        f"got {x.dtype} and {residual.dtype}")
+    if H % 8 or not 8 <= H <= BWD_MAX_WIDTH:
+        raise ValueError(f"fused LN backward takes a width that is a multiple of 8 up to "
+                         f"{BWD_MAX_WIDTH}, got {H}")
+    seed_i = _checked_seed(seed) if rate > 0.0 else 0
+    x2, r2 = (_aligned(t.reshape(-1, H)) for t in (x, residual))
+    dy2 = _aligned(dy.reshape(-1, H).to(x.dtype))
+    g = _aligned(gamma.float())
+    n_rows, code = x2.shape[0], _DTYPE_CODES[x.dtype]
     dx = torch.empty_like(x2)
     dres = torch.empty_like(r2)
+    dgdb = torch.empty((2, H), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        dg, db = _triton_ln().launch_bwd(
-            x2, r2, gamma.contiguous(), dy2, dx, dres,
-            _seed_int(seed) if rate > 0.0 else 0, float(rate), float(eps),
-            _programs(x.device),
+        # a K6 block's four warps take a row each: no more blocks than that needs
+        blocks = min(_bwd_blocks(x.device, H, code, rate > 0.0), -(-n_rows // 4))
+        part = torch.empty((2, blocks, H), dtype=torch.float32, device=x.device)
+        status = _fn("plbt_ln_bwd")(
+            ab._ptr(x2), ab._ptr(r2), ab._ptr(g), ab._ptr(dy2), ab._ptr(dx), ab._ptr(dres),
+            ab._ptr(part), ab._ptr(dgdb), n_rows, H, code, blocks, seed_i & _M32,
+            seed_i >> 32, float(rate), float(eps), ab._stream(x.device),
         )
+    build.check(status, "fused LN backward")
     LAUNCHES_BWD.add()
-    return dx.reshape(x.shape), dres.reshape(x.shape), dg.sum(0), db.sum(0)
+    return dx.reshape(x.shape), dres.reshape(x.shape), dgdb[0], dgdb[1]
+
+
+# the C entry points of csrc/fused_ln.cu: name -> argument types before the stream
+_P, _I, _U, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float,
+                       ctypes.c_longlong)
+_SIGNATURES = {
+    "plbt_ln_bwd": (_P,) * 8 + (_I,) * 4 + (_U, _U, _F, _F),
+    "plbt_add_copy": (_P, _P, _P, _LL, _I, _I),
+}
 
 
 @functools.cache
-def _programs(device) -> int:
-    """K6's grid: four programs per SM."""
-    return 4 * torch.cuda.get_device_properties(device).multi_processor_count
+def _fn(name: str):
+    """A C entry point of ``csrc/fused_ln.cu``'s library, built and typed
+    at first use."""
+    fn = getattr(build.load("fused_ln"), name)
+    fn.argtypes = [*_SIGNATURES[name], ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_blocks(device, H: int, code: int, dropout: bool) -> int:
+    """K6's grid at this width, dtype and dropout: blocks that fill every
+    SM once (the occupancy the compiled kernel allows)."""
+    fn = getattr(build.load("fused_ln"), "plbt_ln_bwd_blocks")
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        blocks = fn(H, code, int(dropout))
+    if blocks < 1:
+        raise RuntimeError(f"fused LN backward: no grid for width {H}")
+    return blocks
+
+
+@functools.cache
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _aligned(t):
+    """``t`` contiguous with a 16-byte-aligned base (the kernels' vector
+    loads): a misaligned view is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def dropout_add_layernorm_bwd_plain(
     dy, x, residual, gamma, seed=None, rate: float = 0.0, eps: float = 1e-12,
     keep=None,
 ):
-    """K6's function in plain PyTorch, in the formulas of ``_bwd_kernel``:
+    """K6's function in plain PyTorch, in the formulas of the TPU's
+    ``_bwd_kernel``:
     the mask and statistics recomputed,
     ``dres = (gγ − mean(gγ) − x̂·mean(gγ·x̂))·rstd``, ``dx`` = ``dres``
     masked and scaled, dγ = Σ g·x̂ and dβ = Σ g over the rows."""
@@ -211,14 +311,22 @@ def add_copy(x, residual):
     if x.device.type == "cpu":
         return add_copy_plain(x, residual)
     _check_cuda(x, ("residual", residual))
-    H = x.shape[-1]
-    x2 = x.reshape(-1, H).contiguous()
-    r2 = residual.reshape(-1, H).contiguous()
-    out = torch.empty_like(x2)
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"add_copy takes float32/bfloat16, got {x.dtype}")
+    xf, rf = x.contiguous().view(-1), residual.contiguous().view(-1)
+    out = torch.empty_like(xf)
+    n = xf.numel()
+    # 256 threads a block, four 16-byte vectors each an operand; at most
+    # 32 blocks an SM (of 4, 8, 16 and 32, 32 timed best on an H100), the
+    # rest in the grid-stride loop
+    per_block = 256 * 4 * (16 // x.element_size())
+    blocks = max(1, min(-(-n // per_block), 32 * _sms(x.device)))
     with torch.cuda.device(x.device):
-        _triton_ln().launch_copy(x2, r2, out)
+        status = _fn("plbt_add_copy")(ab._ptr(xf), ab._ptr(rf), ab._ptr(out), n,
+                                      _DTYPE_CODES[x.dtype], blocks, ab._stream(x.device))
+    build.check(status, "add_copy")
     LAUNCHES_COPY.add()
-    return out.reshape(x.shape)
+    return out.view(x.shape)
 
 
 def add_copy_plain(x, residual):
@@ -227,12 +335,21 @@ def add_copy_plain(x, residual):
 
 
 def dropout_mask(shape, seed: int, rate: float, device):
-    """The kernels' keep mask for ``shape`` at ``seed`` (uint8), made by
-    the same ``tl.rand`` call in a mask-only Triton kernel, for checks."""
+    """K5's keep mask for ``shape`` at ``seed`` (uint8), made by the same
+    ``tl.rand`` call in a mask-only Triton kernel, for checks."""
     keep = torch.empty(shape, dtype=torch.uint8, device=device)
     with torch.cuda.device(device):
         _triton_ln().launch_mask(keep, int(seed), float(rate))
     return keep
+
+
+def triton_rand(n: int, seed: int, device):
+    """``tl.rand(seed, offset)`` at offsets 0 .. n-1 (fp32), from a Triton
+    kernel, for holding :func:`tl_rand` to Triton on the card."""
+    u = torch.empty(n, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        _triton_ln().launch_rand(u, int(seed))
+    return u
 
 
 class DropoutAddLayerNormFunction(torch.autograd.Function):

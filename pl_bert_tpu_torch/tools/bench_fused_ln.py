@@ -7,20 +7,22 @@ The counterpart of ``tools/bench_fused_ln.py``: at the flagship
 [B·L, hidden] = [49152, 768] in bf16, a chain of 24 dependent calls (12
 layers × 2 LayerNorm sites; each call's output is the next one's input),
 timed with CUDA events over ``--steps`` chains after ``WARMUP`` warm-up
-chains (the first compiles the Triton kernels, and a card that sat idle
-needs a few launches to reach its clocks):
+chains (the first builds the CUDA library and compiles the Triton
+kernel, and a card that sat idle needs a few launches to reach its
+clocks):
 
-- the copy anchor (K9, ``fused_ln.add_copy``): both operands read, one
-  output written — the floor of the forward's traffic under K5's launch
-  shape;
+- the copy anchor (K9, ``fused_ln.add_copy``, CUDA C++): both operands
+  read and one output written in 16-byte vectors over the flat elements —
+  the card's floor for the forward's traffic (3 × N·H × itemsize), not
+  K5's launch shape;
 - the fused forward (K5) at dropout rate 0 and 0.1: what the statistics
   and the in-kernel random bits cost over the anchor;
 - the plain PyTorch forward at rate 0.1: what the fusion buys;
 - forward + backward through K5/K6's ``autograd.Function`` at rate 0 and
   0.1, and through the plain version under autograd.
 
-The TPU tool's row-block sweep is left behind with ``_block_rows``: the
-Triton kernels pick their block from the width alone. Prints the card
+The TPU tool's row-block sweep is left behind with ``_block_rows``: K5
+picks its block from the width alone, K6 takes a warp a row. Prints the card
 and its power limit (``nvidia-smi``) beside the table. Needs a CUDA
 card; there is no CPU fallback.
 """

@@ -195,6 +195,88 @@ def test_fused_ln_backward_kernel_matches_plain(dev, dtype, rate):
         _close(a, r, dtype if a.dtype == dtype else torch.float32)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2**31 - 2, "drawn"])
+def test_fused_ln_backward_regenerates_k5s_mask(dev, seed):
+    """K6 drops with K5's tl.rand mask bit for bit (seeds 0, 1, 2^31 - 2
+    and one the training step draws): its dx is zero exactly where K5's
+    mask drops (or dres is zero); and the plain tl_rand equals Triton's
+    uniform floats."""
+    from pl_bert_tpu_torch.models.albert import draw_dropout_seeds
+
+    if seed == "drawn":
+        seed = draw_dropout_seeds(torch.Generator().manual_seed(0), 1)[1]
+    rng = np.random.default_rng(3)
+    N, H = 4096, 768
+    x, res, dy = (torch.from_numpy(rng.standard_normal((N, H)).astype(np.float32))
+                  .to(dev, torch.bfloat16) for _ in range(3))
+    gamma = torch.from_numpy(1 + 0.1 * rng.standard_normal(H).astype(np.float32)).to(dev)
+    dx, dres, _, _ = fused_ln.dropout_add_layernorm_bwd(dy, x, res, gamma, seed, 0.1)
+    keep = fused_ln.dropout_mask((N, H), seed, 0.1, dev).bool()
+    assert torch.equal(dx != 0, keep & (dres != 0))
+    u = fused_ln.triton_rand(8192, seed, dev).cpu()
+    assert torch.equal(u, fused_ln.tl_rand(seed, torch.arange(8192)))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_ln_backward_is_deterministic(dev, rate):
+    """Two calls give the same bits (no float atomics in the dγ/dβ sums)."""
+    rng = np.random.default_rng(3)
+    N, H = 3000, 768
+    x, res, dy = (torch.from_numpy(rng.standard_normal((N, H)).astype(np.float32))
+                  .to(dev, torch.bfloat16) for _ in range(3))
+    gamma = torch.from_numpy(1 + 0.1 * rng.standard_normal(H).astype(np.float32)).to(dev)
+    seed = 21 if rate else None
+    got = fused_ln.dropout_add_layernorm_bwd(dy, x, res, gamma, seed, rate)
+    again = fused_ln.dropout_add_layernorm_bwd(dy, x, res, gamma, seed, rate)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("H", [8, 256, 512, 1000, 1024])
+def test_fused_ln_backward_widths(dev, H):
+    """Any width that is a multiple of 8 up to 1024: one to four 256-column
+    slices a lane, the last one partly idle."""
+    rng = np.random.default_rng(H)
+    N = 300
+    x, res, dy = (torch.from_numpy(rng.standard_normal((N, H)).astype(np.float32))
+                  .to(dev, torch.bfloat16) for _ in range(3))
+    gamma = torch.from_numpy(1 + 0.1 * rng.standard_normal(H).astype(np.float32)).to(dev)
+    keep = fused_ln.dropout_mask((N, H), 4, 0.1, dev)
+    got = fused_ln.dropout_add_layernorm_bwd(dy, x, res, gamma, 4, 0.1)
+    ref = fused_ln.dropout_add_layernorm_bwd_plain(dy, x, res, gamma, 4, 0.1, keep=keep)
+    for a, r in zip(got, ref):
+        _close(a, r, torch.bfloat16 if a.dtype == torch.bfloat16 else torch.float32)
+
+
+@pytest.mark.parametrize("H,seed", [(100, 1), (1032, 1), (768, -1), (768, 2**31 - 1)])
+def test_fused_ln_backward_refuses_what_it_does_not_take(dev, H, seed):
+    """A width that is no multiple of 8 or above 1024, or a seed outside
+    the range whose masks were held against K5's, raises."""
+    x = torch.zeros(4, H, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fused_ln.dropout_add_layernorm_bwd(x, x, x, torch.ones(H, device=dev), seed, 0.1)
+
+
+def test_encoder_fetches_its_own_batch(dev):
+    """Two batches dispatched before the first fetch (the serving
+    pipeline's order on the card: pinned uploads, copies on the encoder's
+    copy stream); each answer equals a direct call."""
+    from pl_bert_tpu_torch.models.albert import AlbertConfig, AlbertModel
+    from pl_bert_tpu_torch.models.inference import PhonemeEncoder
+
+    cfg = AlbertConfig(hidden_size=256, num_attention_heads=4, intermediate_size=512,
+                       max_position_embeddings=128, num_hidden_layers=2, embedding_size=64)
+    torch.manual_seed(0)
+    enc = PhonemeEncoder(AlbertModel(cfg).state_dict(), cfg, 128, mixed_precision="bf16",
+                         batch_size=4, device=dev)
+    chunks = (["qalam", "bajt ʃams", "ab"], ["ˈmaʕna θaːbit", "ʃ" * 70])
+    handles = [enc.dispatch(c) for c in chunks]
+    for chunk, handle in zip(chunks, handles):
+        hidden, lengths = enc.fetch(handle)
+        direct, direct_lengths = enc(chunk)
+        np.testing.assert_array_equal(lengths, direct_lengths)
+        np.testing.assert_array_equal(hidden, direct)
+
+
 def test_train_step_kernel_path_follows_plain_path(dev):
     """Three fp32 steps of a small model on the kernel path (K3-K6) and
     on the plain path under autograd, dropout 0, from the same weights
@@ -428,3 +510,20 @@ def test_add_copy_kernel_is_bitwise_the_plain_version(dev, dtype, shape):
     out = fused_ln.add_copy(x, res)
     assert fused_ln.LAUNCHES_COPY.count == before + 1
     assert out.dtype == dtype and torch.equal(out, fused_ln.add_copy_plain(x, res))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["ragged", "unaligned view"])
+def test_add_copy_kernel_ragged_and_unaligned(dev, dtype, case):
+    """A count that is no whole number of 16-byte vectors takes the scalar
+    tail; views one element past an aligned base take the scalar loop."""
+    rng = np.random.default_rng(5)
+    n = 1001 * 769
+    x, res = (torch.from_numpy(rng.standard_normal(n + 1).astype(np.float32)).to(dev, dtype)
+              for _ in range(2))
+    if case == "ragged":
+        x, res = x[:n], res[:n]
+    else:
+        x, res = x[1:], res[1:]
+    x, res = x.view(1001, 769), res.view(1001, 769)
+    assert torch.equal(fused_ln.add_copy(x, res), fused_ln.add_copy_plain(x, res))

@@ -76,3 +76,95 @@ def test_dropout_plain_keep_rate_and_scale():
     # kept (1/(1-rate)), normalised; the lower one marks the dropped
     dropped = (y < 0).float().mean().item()
     assert abs(dropped - rate) < 0.01
+
+
+def test_tl_rand_known_answer():
+    """Random123's Philox4x32-10 known answer at key 0, counter 0 (first
+    word 6627e8d5) through Triton's float conversion: a positive int32,
+    times 4.6566127342e-10 in fp32."""
+    bits = fused_ln.ab.philox_bits(0, 0, torch.zeros(1, dtype=torch.int64), 0)
+    assert int(bits) == 0x6627E8D5
+    want = np.float32(0x6627E8D5) * np.float32(4.6566127342e-10)
+    assert fused_ln.tl_rand(0, torch.zeros(1, dtype=torch.int64)).item() == want
+
+
+def test_tl_rand_folds_negative_words():
+    """A first word >= 2^31 is a negative int32 x, which Triton maps to
+    -x - 1 before scaling; every float lies in [0, 1)."""
+    offsets = torch.arange(4096)
+    bits = fused_ln.ab.philox_bits(3, 0, offsets, 0)
+    high = bits >= 2**31
+    assert 0 < int(high.sum()) < 4096
+    u = fused_ln.tl_rand(3, offsets)
+    folded = (2**32 - 1 - bits[high]).to(torch.float32) * torch.tensor(4.6566127342e-10)
+    torch.testing.assert_close(u[high], folded, rtol=0, atol=0)
+    assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
+
+
+def test_tl_rand_takes_int32_offsets_as_unsigned():
+    """The kernels hand tl.rand int32 offsets, which Triton bitcasts to
+    uint32: -1 is 2^32 - 1."""
+    a = fused_ln.tl_rand(11, torch.tensor([-1, -2], dtype=torch.int32))
+    b = fused_ln.tl_rand(11, torch.tensor([2**32 - 1, 2**32 - 2]))
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# tl.rand(seed, offset) at offsets 0-7 and the keep decisions at rate 0.1,
+# read from Triton 3.6.0's tl.rand in a Triton kernel on an NVIDIA H100
+# (``fused_ln.triton_rand`` and ``fused_ln.dropout_mask``, K5's mask kernel)
+TRITON_RAND = {
+    0: ([0.7980929017066956, 0.055517591536045074, 0.03889884054660797, 0.4252644181251526,
+         0.13092762231826782, 0.9006523489952087, 0.5727753043174744, 0.6820338368415833],
+        [1, 0, 0, 1, 1, 1, 1, 1]),
+    1: ([0.21948163211345673, 0.6560034155845642, 0.49480292201042175, 0.48474693298339844,
+         0.49552640318870544, 0.3205564022064209, 0.8907782435417175, 0.9613848328590393],
+        [1, 1, 1, 1, 1, 1, 1, 1]),
+    12345: ([0.3595506250858307, 0.005566734820604324, 0.8451180458068848, 0.5762218832969666,
+             0.833573579788208, 0.9319268465042114, 0.040818288922309875, 0.7578627467155457],
+            [1, 0, 1, 1, 1, 1, 0, 1]),
+    2**31 - 2: ([0.441071093082428, 0.21371276676654816, 0.37638965249061584, 0.641473114490509,
+                 0.19668060541152954, 0.35104119777679443, 0.5855880379676819,
+                 0.9973425269126892],
+                [1, 1, 1, 1, 1, 1, 1, 1]),
+}
+
+
+@pytest.mark.parametrize("seed", sorted(TRITON_RAND))
+def test_tl_rand_reproduces_tritons_floats_and_keep_decisions(seed):
+    """The plain tl_rand gives Triton's uniform floats bit for bit, and
+    tl_rand_keep K5's keep decisions: the CUDA K6 draws the same function
+    (held against K5's mask on the card), so this ties K6's mask to K5's."""
+    floats, keep = TRITON_RAND[seed]
+    offsets = torch.arange(8)
+    np.testing.assert_array_equal(fused_ln.tl_rand(seed, offsets).numpy(),
+                                  np.asarray(floats, dtype=np.float32))
+    np.testing.assert_array_equal(fused_ln.tl_rand_keep(seed, offsets, 0.1).numpy(),
+                                  np.asarray(keep, dtype=bool))
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_tl_rand_keep_rate(rate):
+    offsets = torch.arange(200_000)
+    keep = fused_ln.tl_rand_keep(17, offsets, rate)
+    assert keep.dtype == torch.bool
+    assert abs(float(keep.float().mean()) - (1 - rate)) < 5e-3
+    torch.testing.assert_close(keep, fused_ln.tl_rand(17, offsets) >= rate, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("op", ["backward", "copy"])
+def test_k6_k9_wrappers_take_plain_on_cpu_and_count_nothing(op):
+    x, res, gamma, _ = (torch.from_numpy(a) for a in _inputs(seed=4, n=64, h=96))
+    if op == "backward":
+        counter = fused_ln.LAUNCHES_BWD
+        dy = torch.from_numpy(np.random.default_rng(5).standard_normal((64, 96), np.float32))
+        before = counter.count
+        got = fused_ln.dropout_add_layernorm_bwd(dy, x, res, gamma, seed=3, rate=0.2)
+        want = fused_ln.dropout_add_layernorm_bwd_plain(dy, x, res, gamma, seed=3, rate=0.2)
+    else:
+        counter = fused_ln.LAUNCHES_COPY
+        before = counter.count
+        got = (fused_ln.add_copy(x.bfloat16(), res.bfloat16()),)
+        want = (fused_ln.add_copy_plain(x.bfloat16(), res.bfloat16()),)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert counter.count == before

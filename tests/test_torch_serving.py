@@ -156,6 +156,38 @@ def test_http_round_trip_matches_direct(params):
         server.batcher.close()
 
 
+def test_two_dispatches_before_the_first_fetch(params):
+    """pipeline_depth 2's order: batch N dispatched, then N+1, then N
+    fetched, then N+1; each answer equals a direct encoder call."""
+    enc = _port(params, seq_buckets=(16, 64))
+    chunks = (TEXTS[:3], TEXTS[3:])
+    handles = [enc.dispatch(chunk) for chunk in chunks]
+    for chunk, handle in zip(chunks, handles):
+        hidden, lengths = enc.fetch(handle)
+        direct, direct_lengths = enc(chunk)
+        np.testing.assert_array_equal(lengths, direct_lengths)
+        np.testing.assert_array_equal(hidden, direct)
+
+
+def test_port_batcher_at_depth_two_matches_direct(params):
+    """The port's batcher with two batches in flight (max_batch 2, so six
+    requests make three batches): every answer equals a direct call."""
+    from pl_bert_tpu_torch.serving.batcher import DynamicBatcher
+
+    enc = _port(params, seq_buckets=(16, 64))
+    batcher = DynamicBatcher(enc, max_batch=2, max_wait_ms=5.0, seq_buckets=(16, 64),
+                             pipeline_depth=2)
+    try:
+        futures = [batcher.submit(t) for t in TEXTS]
+        for text, fut in zip(TEXTS, futures):
+            hidden, n = fut.result(timeout=60)
+            direct, lengths = enc([text])
+            assert n == lengths[0]
+            np.testing.assert_allclose(hidden, direct[0, :n], atol=1e-5)
+    finally:
+        batcher.close()
+
+
 def test_replica_pool_over_port_encoders(params):
     """The --replicas building blocks: one clone per device behind the
     JAX package's ReplicaPool, answers equal to the template's, and a

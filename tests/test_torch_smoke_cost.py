@@ -122,3 +122,22 @@ def test_cuda_core_bound_of_the_backward(part, flops, want_ms):
     ms, by = smoke.bound_ms(got, nbytes, smoke.PEAK_FP32_FLOPS)
     assert by == "operations"
     assert ms == pytest.approx(want_ms, rel=1e-4)
+
+
+@pytest.mark.parametrize("draws,imad,want_ms,want_by", [
+    # K6 at [49152, 768] bf16: 5 x 37.7M x 2 bytes = 377 MB over 3.35 TB/s
+    (0, 20.0, 0.112683, "bytes"),
+    # dropout 0.1, 20 IMAD a draw: 37.7M x 20 over 64 x 132 x 1980 MHz = 0.0451 ms
+    (49152 * 768, 20.0, 0.112683, "bytes"),
+    # 60 IMAD a draw would make the integer pipe the bound: 0.1354 ms
+    (49152 * 768, 60.0, 0.135405, "operations"),
+])
+def test_k6_bound_takes_the_largest_term(draws, imad, want_ms, want_by):
+    ms, by, terms = smoke.ln_bwd_bound(49152, 768, 2, draws, {"imad": imad, "lop3": 12.0}, 132,
+                                       1980.0)
+    assert terms["bytes"] == pytest.approx(377_487_360 / 3.35e12 * 1e3, rel=1e-9)
+    assert terms["fp32"] == pytest.approx(20 * 37_748_736 / 67e12 * 1e3, rel=1e-9)
+    # the busier of the two integer pipes, IMAD here, sets the integer term
+    assert terms["integer"] == pytest.approx(draws * imad / (64 * 132 * 1.98e9) * 1e3, rel=1e-9)
+    assert by == want_by
+    assert ms == pytest.approx(want_ms, rel=1e-4) == max(terms.values())
