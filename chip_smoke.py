@@ -17,12 +17,15 @@ with random weights made from a fixed seed, in order:
    dk/dv kernels (``attention_bwd_dq_sm90``, ``attention_bwd_dkdv_sm90``)
    in both libraries, and raises if any has no HGMMA; it prints what
    ``ptxas -v`` said of their registers, shared memory and spills, and of
-   the fused LN library's (K6, K9: ``csrc/fused_ln.cu``), and counts the
-   IMAD and LOP3 instructions one of K6's Philox draws issues (its SASS
-   with dropout less without, over the 24 draws a lane makes a row);
+   the fused LN library's (K5 and K6 at three slices a lane, bf16 and
+   fp32, with and without dropout; K9: ``csrc/fused_ln.cu``), and counts
+   the IMAD and LOP3 instructions one Philox draw of K5 and of K6 issues
+   (the SASS with dropout less without, over the 24 draws a lane makes a
+   row);
 3. holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes, in bf16 and fp32 (TF32 off); the block also
-   at head_dim 128 (6 heads, L 200);
+   at head_dim 128 (6 heads, L 200); K5 also at dropout 0.1, the plain
+   version fed the mask of Triton's own ``tl.rand``;
 4. runs the 12-layer encoder on the kernel path against the plain path;
 5. writes the weights as a reference .pth and starts the port's HTTP
    server through its normal entry, in a thread;
@@ -35,8 +38,12 @@ with random weights made from a fixed seed, in order:
 7. checks from the launch counters that every forward of that run went
    through the kernels (12 attention blocks, 24 fused LNs a forward);
 8. times each kernel against its plain version, and the encoder forward
-   at B=8, L=512 on both paths, and K5 at [49152, 768] too (past the L2);
-   K1's projection GEMMs and attention pass
+   at B=8, L=512 on both paths; K5 at [4096, 768] and [49152, 768] (past
+   the L2), dropout 0 and 0.1, beside the library call (``F.dropout``,
+   the add, ``F.layer_norm``) and its bound with the integer term of its
+   draws (the kernels line takes [49152, 768] at dropout 0.1, where the
+   bytes bound holds; the serving shape stays in L2); K1's projection
+   GEMMs and attention pass
    each against its own bound (``torch.profiler``), and K2 (the fp32
    light forward) against its plain version and stock fp32 PyTorch;
 9. holds the attention block's training forward (K3) against its plain
@@ -53,12 +60,14 @@ with random weights made from a fixed seed, in order:
    for bit in bf16, and its delta and ds scratch are held against their
    plain versions fed K4's own ``do``;
 11. holds the fused LN backward (K6) against its plain version, dropout
-   0 and 0.1 (the mask from K5's ``tl.rand``), and K6's regenerated mask
-   against K5's bit for bit at [49152, 768] for seeds 0, 1, 2^31 - 2 and
-   one the training step draws (K6's dx is zero exactly where K5's mask
-   drops), with the plain ``tl_rand`` against Triton's uniform floats;
+   0 and 0.1 (the mask from Triton's ``tl.rand``), and K5's and K6's masks
+   against Triton's bit for bit at [49152, 768] for seeds 0, 1, 2^31 - 2
+   and one the training step draws (K5's output against its plain version
+   fed that mask, under the bf16 gate; K6's dx is zero exactly where the
+   mask drops), with the plain ``tl_rand`` against Triton's uniform floats;
 12. checks the keep rate of every dropout site at the training shape
-   (0.9 ± 1e-3) and that a seed gives the same mask twice;
+   (0.9 ± 1e-3; the fused LN's read from K5's own output too, which must
+   equal Triton's mask) and that a seed gives the same mask twice;
 13. runs the train step (hidden 768, 12 heads, FFN 2048, 12 layers,
    L 512): 3 steps at B=8, dropout 0, on the kernel path against the
    plain path from the same weights and batches (loss and grad_norm per
@@ -172,17 +181,17 @@ PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # multiply-adds (IMAD, IMAD.HI, IMAD.WIDE) and for logic ops (LOP3) alike,
 # on two pipes (CUDA C++ Programming Guide, "Arithmetic Instructions",
 # throughput table); times the SMs and the card's max SM clock
-# (nvidia-smi clocks.max.sm) for the integer term of K6's bound
+# (nvidia-smi clocks.max.sm) for the integer term of K5's and K6's bounds
 INT_OPS_PER_SM_CLOCK = 64
-# K6's element draws a row per lane at H = 768: three slices of 8
-K6_DRAWS_PER_LANE_ROW = 24
+# K5's and K6's element draws a row per lane at H = 768: three slices of 8
+DRAWS_PER_LANE_ROW = 24
 SEED = 0
 BUCKETS = (64, 128, 256)
 # name → (route, source, TPU kernel replaced, the path whose run counts it)
 KERNELS = {
     "attention_block": ("cuda", "pl_bert_tpu_torch/csrc/attention_block.cu",
                         "pl_bert_tpu/ops/attention_block.py:253", "serving"),
-    "dropout_add_layernorm": ("triton", "pl_bert_tpu_torch/ops/_ln_triton.py",
+    "dropout_add_layernorm": ("cuda", "pl_bert_tpu_torch/csrc/fused_ln.cu",
                               "pl_bert_tpu/ops/fused_ln.py:72", "serving"),
     "attention_block_train": ("cuda", "pl_bert_tpu_torch/csrc/attention_block.cu",
                               "pl_bert_tpu/ops/attention_block.py:116", "training"),
@@ -430,28 +439,32 @@ def phase_tensor_cores(build) -> None:
 
 
 def ln_label(mangled: str) -> str:
-    """ln_bwd<bf16, 3, 1> (dtype, slices, dropout), add_copy<f32> or
-    ln_bwd_reduce from a mangled name of csrc/fused_ln.cu."""
+    """ln_fwd<bf16, 3, 1> or ln_bwd<f32, 3, 0> (dtype, slices, dropout),
+    add_copy<f32> or ln_bwd_reduce from a mangled name of csrc/fused_ln.cu."""
     import re
 
-    found = re.search(r"\d(ln_bwd_reduce|ln_bwd|add_copy)[EI]", mangled)
+    found = re.search(r"\d(ln_bwd_reduce|ln_fwd|ln_bwd|add_copy)[EI]", mangled)
     if not found:
         return mangled
     name = found.group(1)
     if name == "ln_bwd_reduce":
         return name
     args = ["bf16" if "__nv_bfloat16" in mangled else "f32"]
-    if name == "ln_bwd":
+    if name in ("ln_fwd", "ln_bwd"):
         args += re.findall(r"Li(\d+)E", mangled)[:1] + re.findall(r"Lb([01])E", mangled)[:1]
     return f"{name}<{', '.join(args)}>"
 
 
 def phase_fused_ln_build(build) -> dict:
-    """2. the fused LN library (K6, K9): what ptxas said of each kernel's
-    registers, shared memory and spills; and the integer instructions one
-    Philox draw of K6 issues, from its SASS: IMAD (with IMAD.HI, IMAD.WIDE)
-    and LOP3 in the bf16 H = 768 kernel with dropout, less the one without,
-    over the 24 draws a lane makes a row. → {"imad": .., "lop3": ..} a draw."""
+    """2. the fused LN library (K5, K6, K9): what ptxas said of each
+    kernel's registers, shared memory and spills (K5 and K6 at the
+    flagship's three slices a lane, H = 768, and at their widest, eight
+    slices, H = 2048, where K6's partials live in shared memory); and the
+    integer instructions one Philox draw of K5 and of K6 issues, from the
+    SASS: IMAD (with IMAD.HI, IMAD.WIDE) and LOP3 in the bf16 H = 768
+    kernel with dropout, less the one without, over the 24 draws a lane
+    makes a row.
+    → {"ln_fwd": {"imad": .., "lop3": ..}, "ln_bwd": {...}} a draw."""
     import re
 
     func = None
@@ -460,7 +473,10 @@ def phase_fused_ln_build(build) -> dict:
         if found:
             func = found.group(1)
         elif func and ("Used" in line or "spill" in line):
-            log(f"  ptxas fused_ln: {ln_label(func)}: {line.split(':', 1)[-1].strip()}")
+            name = ln_label(func)
+            if (not name.startswith("ln_") or name == "ln_bwd_reduce" or ", 3, " in name
+                    or ", 8, " in name):
+                log(f"  ptxas fused_ln: {name}: {line.split(':', 1)[-1].strip()}")
     cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(build.build("fused_ln"))],
                           capture_output=True, text=True, check=True, timeout=300).stdout
@@ -477,19 +493,21 @@ def phase_fused_ln_build(build) -> dict:
                 counts[func]["imad"] += 1
             elif op.group(1) == "LOP3":
                 counts[func]["lop3"] += 1
-    pick = {}
-    for f, c in counts.items():
-        name = ln_label(f)
-        if name in ("ln_bwd<bf16, 3, 1>", "ln_bwd<bf16, 3, 0>"):
-            pick[name[-2]] = c
-    if set(pick) != {"0", "1"}:
-        raise AssertionError(f"fused_ln: no bf16 H=768 ln_bwd pair in the SASS: "
-                             f"{[ln_label(f) for f in counts]}")
-    per_draw = {k: (pick["1"][k] - pick["0"][k]) / K6_DRAWS_PER_LANE_ROW for k in ("imad", "lop3")}
-    log(f"  SASS ln_bwd<bf16, 3>: with dropout {pick['1']}, without {pick['0']}: "
-        f"{per_draw['imad']:.2f} IMAD and {per_draw['lop3']:.2f} LOP3 a Philox draw")
-    if per_draw["imad"] <= 0:
-        raise AssertionError("fused_ln: the dropout kernel issues no more IMAD than the other")
+    labelled = {ln_label(f): c for f, c in counts.items()}
+    per_draw = {}
+    for kernel in ("ln_fwd", "ln_bwd"):
+        with_, without = (labelled.get(f"{kernel}<bf16, 3, {d}>") for d in (1, 0))
+        if with_ is None or without is None:
+            raise AssertionError(f"fused_ln: no bf16 H=768 {kernel} pair in the SASS: "
+                                 f"{sorted(labelled)}")
+        per_draw[kernel] = {k: (with_[k] - without[k]) / DRAWS_PER_LANE_ROW
+                            for k in ("imad", "lop3")}
+        log(f"  SASS {kernel}<bf16, 3>: with dropout {with_}, without {without}: "
+            f"{per_draw[kernel]['imad']:.2f} IMAD and {per_draw[kernel]['lop3']:.2f} LOP3 "
+            f"a Philox draw")
+        if per_draw[kernel]["imad"] <= 0:
+            raise AssertionError(f"fused_ln: {kernel} with dropout issues no more IMAD than "
+                                 f"without")
     return per_draw
 
 
@@ -549,14 +567,17 @@ def phase_kernels(torch, cfg, results: dict) -> None:
               for _ in range(2)]
         gamma = torch.from_numpy(1 + 0.1 * rng.standard_normal(E, dtype=np.float32)).to(dev)
         beta = torch.from_numpy(0.1 * rng.standard_normal(E, dtype=np.float32)).to(dev)
-        out = fused_ln.dropout_add_layernorm(xs[0], xs[1], gamma, beta)
-        ref = fused_ln.dropout_add_layernorm_plain(xs[0], xs[1], gamma, beta)
-        torch.cuda.synchronize()
-        if out.dtype != dtype or not torch.isfinite(out).all():
-            raise AssertionError(f"dropout_add_layernorm {dname}: bad output")
-        err = errors(out, ref)
-        results["dropout_add_layernorm"].append(err["max_abs"])
-        gate(f"dropout_add_layernorm [{N}, {E}] {dname}", err, TOL[dname])
+        # with dropout the plain version gets Triton's own tl.rand mask
+        for rate, seed in ((0.0, None), (0.1, 4321)):
+            keep = fused_ln.dropout_mask((N, E), seed, rate, dev) if rate else None
+            out = fused_ln.dropout_add_layernorm(xs[0], xs[1], gamma, beta, seed, rate)
+            ref = fused_ln.dropout_add_layernorm_plain(xs[0], xs[1], gamma, beta, seed, rate,
+                                                       keep=keep)
+            torch.cuda.synchronize()
+            if out.dtype != dtype:
+                raise AssertionError(f"dropout_add_layernorm {dname}: {out.dtype} output")
+            hold(results, "dropout_add_layernorm",
+                 f"dropout_add_layernorm [{N}, {E}] {dname} dropout {rate}", out, ref, TOL[dname])
 
     # dropout inside the LN kernel (the training slice's path): with
     # x = 1 and residual = 0 a row holds two values, kept 1/(1-rate) and
@@ -786,9 +807,11 @@ def phase_pipeline(torch, cfg, sd, enc, by_depth: dict) -> dict:
     return {"probes": probes, "latency": lat}
 
 
-def phase_timing(torch, cfg, encoders) -> dict:
+def phase_timing(torch, cfg, encoders, per_draw: dict, clock_mhz: float) -> dict:
     """8. kernel against plain version, and the encoder forward, timed;
-    the library yardsticks and the bounds beside the kernels."""
+    the library yardsticks and the bounds beside the kernels; K5 at the
+    serving and the training shape, dropout 0 and 0.1, beside its library
+    call and its bound with the integer term of its draws."""
     import numpy as np
 
     import torch.nn.functional as F
@@ -857,18 +880,20 @@ def phase_timing(torch, cfg, encoders) -> dict:
     res = torch.from_numpy(rng.standard_normal((B * L, E), dtype=np.float32)).to(DEV, torch.bfloat16)
     x2 = x.reshape(B * L, E)
     ln = att["ln"]
-    times["dropout_add_layernorm"] = a_b(
-        torch, lambda: fused_ln.dropout_add_layernorm_plain(x2, res, ln["g"], ln["b"]),
-        lambda: fused_ln.dropout_add_layernorm(x2, res, ln["g"], ln["b"]), iters=200,
-        timer=graph_ms,
-    )
-    # its library yardstick: the add and F.layer_norm (serving runs dropout 0)
+    # K5's library yardstick: the add and F.layer_norm; with dropout,
+    # F.dropout before them
     g16, b16 = ln["g"].to(torch.bfloat16), ln["b"].to(torch.bfloat16)
-    library["dropout_add_layernorm"] = graph_ms(
-        torch, lambda: F.layer_norm(x2 + res, (E,), g16, b16, cfg.layer_norm_eps), 200)
-    # x and the residual read and the output written, ~10 fp32 flops an element
-    bounds["dropout_add_layernorm"] = bound_ms(10.0 * B * L * E, 3 * B * L * E * 2,
-                                               PEAK_FP32_FLOPS)
+
+    def library_ln(xa, ra, rate):
+        return lambda: F.layer_norm((F.dropout(xa, rate) if rate else xa) + ra, (E,), g16, b16,
+                                    cfg.layer_norm_eps)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def bound5(N, rate):  # x and the residual read, the output written, ~10 fp32 flops an element
+        return ln_bound(N, E, 2, 3, 10.0, N * E if rate else 0, per_draw["ln_fwd"], sms,
+                        clock_mhz)
+
     texts = [phoneme_text(rng, 512) for _ in range(B)]
     ids, mask, _ = enc.encode_batch(texts)
     times["encoder_forward"] = a_b(
@@ -878,18 +903,42 @@ def phase_timing(torch, cfg, encoders) -> dict:
         extra = (f", library {library[name]:.4f} ms, bound {bounds[name][0]:.4f} ms "
                  f"({bounds[name][1]})" if name in library else "")
         log(f"  {name}: kernel {k:.4f} ms, plain {p:.4f} ms{extra}")
-    # K5 at the training shape too: its 226 MB do not fit in the 50 MB L2,
-    # so its share of the bytes bound is one of device memory (the serving
-    # shape's 18.9 MB stay in L2 under graph replay)
+    # K5 at both shapes and rates: the training shape's 226 MB do not fit in
+    # the 50 MB L2, so its share of the bytes bound is one of device memory
+    # (the serving shape's 18.9 MB stay in L2 under graph replay, where the
+    # bytes bound at the memory rate is no bound). The kernels line takes
+    # the training shape at the training step's rate, 0.1.
     Nt = 96 * 512
     xt, rt = (torch.from_numpy(rng.standard_normal((Nt, E), dtype=np.float32)).to(
         DEV, torch.bfloat16) for _ in range(2))
-    k5 = {r: graph_ms(torch, lambda r=r: fused_ln.dropout_add_layernorm(
-        xt, rt, ln["g"], ln["b"], seed=7 if r else None, rate=r), 20) for r in (0.0, 0.1)}
-    bound5 = bound_ms(10.0 * Nt * E, 3 * Nt * E * 2, PEAK_FP32_FLOPS)
-    log(f"  dropout_add_layernorm [{Nt}, {E}]: kernel {k5[0.0]:.4f} ms at dropout 0, "
-        f"{k5[0.1]:.4f} ms at dropout 0.1, bound {bound5[0]:.4f} ms ({bound5[1]}), "
-        f"{bound5[0] / k5[0.0]:.1%} of it at dropout 0")
+    for N, xa, ra, iters in ((B * L, x2, res, 200), (Nt, xt, rt, 20)):
+        for rate in (0.0, 0.1):
+            seed = 7 if rate else None
+            k5 = graph_ms(torch, lambda: fused_ln.dropout_add_layernorm(
+                xa, ra, ln["g"], ln["b"], seed, rate), iters)
+            lib5 = graph_ms(torch, library_ln(xa, ra, rate), iters)
+            b5, by, terms = bound5(N, rate)
+            at = (f"[{N}, {E}] dropout {rate}: kernel {k5:.4f} ms, library {lib5:.4f} ms, "
+                  f"bound {b5:.4f} ms ({by}; " + ", ".join(f"{k} {v:.4f}" for k, v in terms.items())
+                  + ")")
+            if N == Nt:
+                log(f"  dropout_add_layernorm {at}, {b5 / k5:.1%} of it")
+            else:
+                log(f"  dropout_add_layernorm {at}; L2-resident, so no share of it is read")
+            if N == Nt and rate:
+                # the plain version draws its own mask with the same rate (event-timed:
+                # its generator is not captured in a graph; ~1 ms a call, so the host's
+                # launches are out of the way)
+                plain5 = time_ms(torch, lambda: fused_ln.dropout_add_layernorm_plain(
+                    xa, ra, ln["g"], ln["b"], seed, rate), iters)
+                times["dropout_add_layernorm"] = (k5, plain5)
+                library["dropout_add_layernorm"] = lib5
+                bounds["dropout_add_layernorm"] = (b5, by)
+    # the draws alone, which bound K5 with dropout: Triton's mask kernel,
+    # the same tl.rand an element and one byte out
+    draws = graph_ms(torch, lambda: fused_ln.dropout_mask((Nt, E), 7, 0.1, DEV), 20)
+    log(f"  the dropout draws alone at [{Nt}, {E}] (Triton's tl.rand mask kernel, one byte "
+        f"out an element): {draws:.4f} ms")
     return {"times": times, "library": library, "bounds": bounds}
 
 
@@ -1164,13 +1213,22 @@ def phase_train_kernels(torch, cfg, results: dict) -> None:
                 gate(f"K6 {name} {dname} dropout {rate}", err,
                      TOL[dname] if a.dtype == dtype else TOL_GRAD[dname])
 
-    hold_k6_mask(torch, dev)
+    hold_ln_masks(torch, results, dev)
 
     Bt = 96
     log(f"phase 12: dropout keep rates at the training shape (B={Bt}, rate 0.1)")
     rate = 0.1
+    ones = torch.ones(Bt * L, E, device=dev, dtype=torch.bfloat16)
+    g1, b0 = torch.ones(E, device=dev), torch.zeros(E, device=dev)
+
+    def k5_kept(s):
+        # x = 1, residual = 0: a row holds kept 1/(1-rate) and dropped 0, and
+        # after normalisation the dropped ones are the negative ones
+        return fused_ln.dropout_add_layernorm(ones, torch.zeros_like(ones), g1, b0, s, rate) >= 0
+
     sites = {
         "attention (Philox, CUDA)": lambda s: ab.dropout_mask(s, rate, Bt, H, L, dev),
+        "fused LN (K5's output, CUDA)": k5_kept,
         "fused LN (tl.rand, Triton)": lambda s: fused_ln.dropout_mask((Bt * L, E), s, rate, dev),
         "embedding (torch.Generator)": lambda s: _dropout(
             torch.ones(Bt, L, cfg.embedding_size, device=dev), s, rate) != 0,
@@ -1184,49 +1242,64 @@ def phase_train_kernels(torch, cfg, results: dict) -> None:
         if abs(kept - (1 - rate)) > KEEP_TOL or not same or torch.equal(first, other):
             raise AssertionError(f"dropout at {name} is off")
         del first, again, other
+    same = torch.equal(k5_kept(17), fused_ln.dropout_mask((Bt * L, E), 17, rate, dev).bool())
+    log(f"  fused LN: K5's kept elements are Triton's tl.rand mask, bit for bit: {same}")
+    if not same:
+        raise AssertionError("K5's dropout mask is not Triton's")
 
 
-def hold_k6_mask(torch, dev) -> None:
-    """11. K6 regenerates K5's dropout mask bit for bit: at [49152, 768],
-    rate 0.1, for seeds 0, 1, 2^31 - 2 and one the training step draws,
-    K6's dx is zero exactly where K5's ``tl.rand`` mask (a Triton kernel)
-    drops or dres is zero; and the plain ``tl_rand`` equals Triton's
-    uniform floats at the first 4096 offsets, bitwise."""
+def hold_ln_masks(torch, results: dict, dev) -> None:
+    """11. K5 and K6 draw Triton's ``tl.rand`` mask bit for bit: at
+    [49152, 768], rate 0.1, for seeds 0, 1, 2^31 - 2 and one the training
+    step draws, K5's output is held against its plain version fed the mask
+    of a Triton kernel that calls ``tl.rand`` (one element dropped
+    otherwise moves its output past the bf16 gate), K6's dx is zero
+    exactly where that mask drops or dres is zero; and the plain
+    ``tl_rand`` equals Triton's uniform floats at the first 4096 offsets,
+    bitwise."""
     from pl_bert_tpu_torch.models.albert import draw_dropout_seeds
     from pl_bert_tpu_torch.ops import fused_ln
 
     shape, rate = (96 * 512, 768), 0.1
     gen = torch.Generator(device=dev).manual_seed(SEED)
     x, res, dy = (torch.randn(shape, generator=gen, device=dev).bfloat16() for _ in range(3))
-    gamma = torch.ones(shape[1], device=dev)
+    gamma = 1 + 0.1 * torch.randn(shape[1], generator=gen, device=dev)
+    beta = 0.1 * torch.randn(shape[1], generator=gen, device=dev)
     drawn = draw_dropout_seeds(torch.Generator().manual_seed(SEED), 1)[1]
     for seed in (0, 1, fused_ln.SEED_MAX, drawn):
+        mask = fused_ln.dropout_mask(shape, seed, rate, dev).bool()
+        out = fused_ln.dropout_add_layernorm(x, res, gamma, beta, seed, rate)
+        ref = fused_ln.dropout_add_layernorm_plain(x, res, gamma, beta, seed, rate, keep=mask)
+        hold(results, "dropout_add_layernorm",
+             f"K5 against plain fed Triton's mask, seed {seed}, {list(shape)}", out, ref,
+             TOL["bfloat16"])
+        del out, ref
         dx, dres, _, _ = fused_ln.dropout_add_layernorm_bwd(dy, x, res, gamma, seed, rate)
-        k5 = fused_ln.dropout_mask(shape, seed, rate, dev).bool()
-        same = torch.equal(dx != 0, k5 & (dres != 0))
+        same = torch.equal(dx != 0, mask & (dres != 0))
         u = fused_ln.triton_rand(4096, seed, dev).cpu()
         plain = fused_ln.tl_rand(seed, torch.arange(4096))
-        log(f"  K6's dx is zero where K5's tl.rand mask drops, seed {seed}, {list(shape)}: "
-            f"{same} (K5 kept {float(k5.float().mean()):.5f}); plain tl_rand == Triton's at "
+        log(f"  K6's dx is zero where Triton's tl.rand mask drops, seed {seed}, {list(shape)}: "
+            f"{same} (kept {float(mask.float().mean()):.5f}); plain tl_rand == Triton's at "
             f"offsets 0-4095: {torch.equal(u, plain)}; tl.rand at offsets 0-3: "
             f"{[float(v) for v in u[:4]]}")
         if not same or not torch.equal(u, plain):
-            raise AssertionError(f"K6's dropout mask is not K5's at seed {seed}")
-        del dx, dres, k5
+            raise AssertionError(f"K6's dropout mask is not Triton's at seed {seed}")
+        del dx, dres, mask
 
 
-def ln_bwd_bound(N: int, H: int, itemsize: int, draws: int, per_draw: dict, sms: int,
-                 clock_mhz: float):
-    """K6's bound → (ms, "bytes" or "operations", {term: ms}): the largest
-    of the bytes it must move (x, the residual and dy read, dx and dres
-    written: 5·N·H·itemsize) over 3.35 TB/s; its ~20 fp32 operations an
-    element over 67 TFLOP/s; and its ``draws`` Philox draws' integer
-    instructions, the busier of the IMAD and LOP3 pipes (``per_draw``,
-    counted in its SASS), over ``INT_OPS_PER_SM_CLOCK`` × ``sms`` × the
-    max SM clock."""
+def ln_bound(N: int, H: int, itemsize: int, passes: int, flops: float, draws: int,
+             per_draw: dict, sms: int, clock_mhz: float):
+    """K5's or K6's bound → (ms, "bytes" or "operations", {term: ms}): the
+    largest of the bytes it must move (``passes`` of [N, H]: K5 reads x and
+    the residual and writes the output, 3; K6 reads x, the residual and dy
+    and writes dx and dres, 5) over 3.35 TB/s; its ``flops`` fp32
+    operations an element (~10, ~20) over 67 TFLOP/s; and its ``draws``
+    Philox draws' integer instructions, the busier of the IMAD and LOP3
+    pipes (``per_draw``, counted in its SASS), over
+    ``INT_OPS_PER_SM_CLOCK`` × ``sms`` × the max SM clock."""
     terms = {
-        "bytes": 5 * N * H * itemsize / PEAK_BYTES * 1e3,
-        "fp32": 20.0 * N * H / PEAK_FP32_FLOPS * 1e3,
+        "bytes": passes * N * H * itemsize / PEAK_BYTES * 1e3,
+        "fp32": flops * N * H / PEAK_FP32_FLOPS * 1e3,
         "integer": draws * max(per_draw.values())
         / (INT_OPS_PER_SM_CLOCK * sms * clock_mhz * 1e6) * 1e3,
     }
@@ -1234,7 +1307,7 @@ def ln_bwd_bound(N: int, H: int, itemsize: int, draws: int, per_draw: dict, sms:
     return terms[by], "bytes" if by == "bytes" else "operations", terms
 
 
-def phase_train(torch, results: dict, k6_per_draw: dict,
+def phase_train(torch, results: dict, per_draw: dict,
                 clock_mhz: float) -> tuple[dict, dict, dict]:
     """13. the train step: kernel path against plain path, then bench.py's
     workload on the kernel path, with the launch counters; then K3, K4
@@ -1438,8 +1511,9 @@ def phase_train(torch, results: dict, k6_per_draw: dict,
         raise AssertionError("K6: two calls on the same inputs differ")
     del keep, got, ref, again
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    bound6 = ln_bwd_bound(N, E, 2, N * E, k6_per_draw, sms, clock_mhz)
-    bound6_0 = ln_bwd_bound(N, E, 2, 0, k6_per_draw, sms, clock_mhz)
+    k6_per_draw = per_draw["ln_bwd"]
+    bound6 = ln_bound(N, E, 2, 5, 20.0, N * E, k6_per_draw, sms, clock_mhz)
+    bound6_0 = ln_bound(N, E, 2, 5, 20.0, 0, k6_per_draw, sms, clock_mhz)
     bounds["dropout_add_layernorm_bwd"] = bound6[:2]
     log(f"  dropout_add_layernorm_bwd [{N}, {E}] bound terms: "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in bound6[2].items())
@@ -1731,8 +1805,9 @@ def phase_microbench(torch) -> dict:
     counters = reset_counters()  # the microbench's run starts here
     bench_fused_ln.main(["--steps", "5"])
     launches = read_counters(counters)  # the microbench's run ends here
-    # the anchor's case: the warm-up chains and five timed ones
-    expect = bench_fused_ln.CALLS * (bench_fused_ln.WARMUP + 5)
+    # the anchor's case: the warm-up chains and the one captured in a graph
+    # (its five timed replays launch no wrapper)
+    expect = bench_fused_ln.CALLS * (bench_fused_ln.WARMUP + 1)
     if launches["add_copy"] != expect:
         raise AssertionError(f"add_copy launched {launches['add_copy']} times, not {expect}")
     return launches
@@ -1772,7 +1847,8 @@ def main() -> int:
     build.import_triton()
     log(f"  built in {time.perf_counter() - t0:.1f} s (Triton compiles at first launch)")
     phase_tensor_cores(build)
-    k6_per_draw = phase_fused_ln_build(build)
+    per_draw = phase_fused_ln_build(build)
+    clock_mhz = max_sm_clock_mhz()
 
     cfg = AlbertConfig()  # the flagship model of configs/config.yml
     results = {name: [] for name in KERNELS}
@@ -1787,13 +1863,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         log("phase 15: 8 requests from a server started with attention_impl pallas")
         phase_serve(torch, cfg, sd, workdir, impl="pallas", per_client=2)
-    serving = phase_timing(torch, cfg, encoders)
+    serving = phase_timing(torch, cfg, encoders, per_draw, clock_mhz)
     del encoders
     torch.cuda.empty_cache()
     phase_train_kernels(torch, cfg, results)
     flash = phase_flash_kernels(torch, cfg, results)
-    train, train_launches, training = phase_train(torch, results, k6_per_draw,
-                                                  max_sm_clock_mhz())
+    train, train_launches, training = phase_train(torch, results, per_draw, clock_mhz)
     with tempfile.TemporaryDirectory() as workdir:
         run, run_launches = phase_packed_run(torch, workdir)
     bench_launches = phase_microbench(torch)

@@ -32,7 +32,9 @@ per application and summed in fp32, as in JAX.
 between cuBLAS projections, as the JAX model's ``pallas`` branch
 (pl_bert_tpu/models/albert.py:399-459) leaves its projections to XLA.
 Both run the fused dropout+add+LayerNorm kernels (``ops/fused_ln.py``)
-at the two LayerNorm sites. ``eager`` (or the JAX value ``xla``) runs
+at the two LayerNorm sites, where those take the width (a multiple of 8
+up to 2048; else the plain LayerNorm, chosen when the model is built and
+logged, as JAX falls back to ``nn.LayerNorm``). ``eager`` (or the JAX value ``xla``) runs
 the plain versions of all of them on any device, under autograd when
 training; a kernel path whose kernels do not take the model's shapes
 (head_dim other than 64 or 128, say) falls back to it when the model is
@@ -66,6 +68,7 @@ from pl_bert_tpu_torch.ops.fused_ln import (
     dropout_add_layernorm,
     dropout_add_layernorm_plain,
     dropout_add_layernorm_train,
+    ln_kernel_refusal,
 )
 
 logger = logging.getLogger(__name__)
@@ -227,6 +230,7 @@ class AlbertSelfAttention(nn.Module):
                            kernel_refusal(cfg.head_dim, cfg.hidden_size, cfg.dtype))
         else:
             logger.info("attention_impl %r runs the %s path", cfg.attention_impl, self.impl)
+        self.ln_fns = _ln_fns(self.impl, cfg)
         H = cfg.hidden_size
         self.query = nn.Linear(H, H)
         self.key = nn.Linear(H, H)
@@ -287,7 +291,7 @@ class AlbertSelfAttention(nn.Module):
             out = self._flash(hidden, attention_bias, segment_ids, w,
                               seeds[0] if train else None)
             return _add_layernorm(
-                self.impl, out, hidden, w["ln"], cfg.layer_norm_eps, train,
+                self.ln_fns, out, hidden, w["ln"], cfg.layer_norm_eps, train,
                 seeds[1] if train else None, cfg.dropout if train else 0.0,
             )
         if seeds is None:
@@ -296,26 +300,39 @@ class AlbertSelfAttention(nn.Module):
                 cfg.num_attention_heads, bias=attention_bias,
                 segment_ids=segment_ids, out_dtype=cfg.dtype,
             )
-            return _add_layernorm(self.impl, out, hidden, w["ln"], cfg.layer_norm_eps)
+            return _add_layernorm(self.ln_fns, out, hidden, w["ln"], cfg.layer_norm_eps)
         out = self_attention_train(
             self.impl, hidden, w, cfg.num_attention_heads, bias=attention_bias,
             segment_ids=segment_ids, dropout_rate=cfg.dropout, dropout_seed=seeds[0],
         )
         return _add_layernorm(
-            self.impl, out, hidden, w["ln"], cfg.layer_norm_eps, True, seeds[1],
+            self.ln_fns, out, hidden, w["ln"], cfg.layer_norm_eps, True, seeds[1],
             cfg.dropout,
         )
 
 
-def _add_layernorm(impl: str, x, residual, ln: dict, eps: float, train: bool = False,
+def _ln_fns(impl: str, cfg: AlbertConfig) -> tuple:
+    """(serving, training) function of the model's two LayerNorm sites,
+    chosen when the model is built: on a kernel path K5, and K5/K6's
+    autograd Function in training; the plain version on the eager path
+    and wherever the LN kernels do not take the width
+    (:func:`ln_kernel_refusal`), as JAX falls back to ``nn.LayerNorm``
+    (pl_bert_tpu/models/albert.py:445-453, 477-480). Logs why."""
+    plain = dropout_add_layernorm_plain
+    if impl == "eager":
+        return plain, plain
+    reason = ln_kernel_refusal(cfg.hidden_size, cfg.dtype)
+    if reason:
+        logger.warning("the LayerNorm runs its plain version: %s", reason)
+        return plain, plain
+    return dropout_add_layernorm, dropout_add_layernorm_train
+
+
+def _add_layernorm(fns: tuple, x, residual, ln: dict, eps: float, train: bool = False,
                    seed=None, rate: float = 0.0):
-    """Dropout + residual add + LayerNorm; ``train`` runs the kernel path
-    through K5/K6's autograd Function."""
-    if impl != "eager":
-        fn = dropout_add_layernorm_train if train else dropout_add_layernorm
-    else:
-        fn = dropout_add_layernorm_plain
-    return fn(x, residual, ln["g"], ln["b"], seed=seed, rate=rate, eps=eps)
+    """Dropout + residual add + LayerNorm through ``fns`` (:func:`_ln_fns`):
+    its serving function, or with ``train`` its training one."""
+    return fns[train](x, residual, ln["g"], ln["b"], seed=seed, rate=rate, eps=eps)
 
 
 class AlbertLayer(nn.Module):
@@ -357,7 +374,7 @@ class AlbertLayer(nn.Module):
         ffn = self.act(_linear(attn_out, w["ffn"], dtype))
         ffn = _linear(ffn, w["ffn_output"], dtype)
         return _add_layernorm(
-            self.attention.impl, ffn, attn_out, w["ln"], self.cfg.layer_norm_eps,
+            self.attention.ln_fns, ffn, attn_out, w["ln"], self.cfg.layer_norm_eps,
             seeds is not None, None if seeds is None else seeds[2], self.cfg.dropout,
         )
 

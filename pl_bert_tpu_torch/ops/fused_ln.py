@@ -1,33 +1,38 @@
 """Fused dropout + residual add + LayerNorm, forward and backward, as
-hand-written kernels for Hopper: the forward in Triton, the backward in
-CUDA C++.
+hand-written CUDA C++ kernels for Hopper (``csrc/fused_ln.cu``).
 
 Replaces the Pallas kernels of ``pl_bert_tpu/ops/fused_ln.py``, which
 each ALBERT layer runs twice (after the attention block and after the
 FFN): the forward ``_fwd_kernel`` (:72-85, via ``_fused_fwd`` :132-145),
-K5, in ``ops/_ln_triton.py``; and the backward ``_bwd_kernel`` (:88-115,
-via ``_fused_bwd`` :148-170), K6, in ``csrc/fused_ln.cu``, whose header
-says what bounds it and how it is laid out (a warp a row, the row sums
-in warp shuffles, dγ/dβ partials in registers, reduced in a fixed
-order). :class:`DropoutAddLayerNormFunction` joins them under autograd.
+K5 (``ln_fwd``), and the backward ``_bwd_kernel`` (:88-115, via
+``_fused_bwd`` :148-170), K6 (``ln_bwd``). The source's header says what
+bounds them and how they are laid out: a warp a row, one routine for the
+row's mask and statistics that both call, the row sums in warp shuffles,
+γ/β (K5) and the dγ/dβ partials (K6) in registers (in shared memory above
+width 1024), the latter reduced in a fixed order. :class:`DropoutAddLayerNormFunction` joins them under
+autograd.
 
-What bounds them on the card: the forward reads x, the residual and γ/β
-and writes the output once; the backward reads x, the residual and the
-output gradient and writes dx and dres — 3 to 5 × rows × H × itemsize
+What bounds them on the card: the forward reads x and the residual and
+writes the output once; the backward reads x, the residual and the
+output gradient and writes dx and dres — 3 and 5 × rows × H × itemsize
 bytes for ~10-20 flops per element — so device-memory bandwidth bounds
-both, and with dropout the backward's Philox draws are work of the same
-order on the integer units. Each makes one pass with the row statistics
-in registers; the backward regenerates the dropout mask and recomputes
-the statistics instead of reading saved ones. Differences from the TPU:
+both, and with dropout their Philox draws are work of the same order on
+the integer units. Each makes one pass with the row statistics in
+registers; the backward regenerates the dropout mask and recomputes the
+statistics instead of reading saved ones. Differences from the TPU:
 
 - any row count, so the ``rows % 256`` and ``H % 128`` refusals
-  (fused_ln.py:200-207) are gone; the backward takes a width that is a
-  multiple of 8 up to 1024 (its 16-byte loads), and raises on others;
+  (fused_ln.py:200-207) are gone; the kernels take a width that is a
+  multiple of 8 (their 16-byte loads) up to 2048, and raise on others. :func:`ln_kernel_refusal` says which widths they
+  take; the model sends the others to the plain version when it is
+  built, as JAX falls back to ``nn.LayerNorm``;
 - dropout keeps an element where ``tl.rand(seed, offset) >= rate``
   (Triton's Philox, keyed by the seed and the element's flat int32
-  index), scaled by 1/(1-rate); the backward draws the same bits in CUDA
-  (:func:`tl_rand` is the same draw in plain PyTorch); the TPU drew its
-  own hardware bits, so masks differ from JAX's;
+  index), scaled by 1/(1-rate); both kernels draw it in CUDA
+  (:func:`tl_rand` is the same draw in plain PyTorch, and a Triton kernel
+  that calls ``tl.rand`` itself, :func:`dropout_mask`, is the oracle on
+  the card); the TPU drew its own hardware bits, so masks differ from
+  JAX's;
 - the backward's blocks each write one fp32 partial row of dγ and dβ,
   summed in a fixed order by a second small kernel in the same call (the
   TPU wrote one per block, :104-105, :168-169, reduced outside).
@@ -61,9 +66,10 @@ LAUNCHES_BWD = build.LaunchCounter("dropout_add_layernorm_bwd")  # K6
 LAUNCHES_COPY = build.LaunchCounter("add_copy")  # K9
 
 
-# K6's widths: 16-byte loads of 8 elements, at most four 256-column slices a lane
-BWD_MAX_WIDTH = 1024
-# the seeds whose regenerated masks are held against K5's on the card
+# K5's and K6's widths: 16-byte loads of 8 elements, at most eight
+# 256-column slices a lane
+MAX_WIDTH = 2048
+# the seeds whose masks are held against Triton's tl.rand on the card
 # (models/albert.py draws them in [0, 2^31 - 1))
 SEED_MAX = 2**31 - 2
 # triton/language/random.py, uint_to_uniform_float: the int32 scale
@@ -79,8 +85,22 @@ def _seed_int(seed) -> int:
 def _checked_seed(seed) -> int:
     s = _seed_int(seed)
     if not 0 <= s <= SEED_MAX:
-        raise ValueError(f"fused LN backward takes dropout seeds in [0, {SEED_MAX}], got {s}")
+        raise ValueError(f"the fused LN kernels take dropout seeds in [0, {SEED_MAX}], got {s}")
     return s
+
+
+def ln_kernel_refusal(width: int, dtype) -> str | None:
+    """Why the card's LN kernels (K5 and K6 take the same shapes) do not
+    take a LayerNorm of this width and compute dtype, or None when they
+    do: a multiple of 8 (16-byte loads) up to 2048, in float32 or
+    bfloat16."""
+    if dtype not in _DTYPE_CODES:
+        return f"the LN kernels take float32 or bfloat16, not {dtype}"
+    if width < 8 or width % 8:
+        return f"width {width} is no multiple of 8 (the LN kernels' 16-byte loads)"
+    if width > MAX_WIDTH:
+        return f"width {width} is above the LN kernels' {MAX_WIDTH}"
+    return None
 
 
 def tl_rand(seed: int, offsets):
@@ -99,8 +119,9 @@ def tl_rand(seed: int, offsets):
 
 
 def tl_rand_keep(seed: int, offsets, rate: float):
-    """K5's keep decision ``tl.rand(seed, offset) >= rate``, compared in
-    fp32 as the kernels compare it; the mask K6 regenerates."""
+    """The kernels' keep decision ``tl.rand(seed, offset) >= rate``,
+    compared in fp32 as they compare it: the mask K5 draws and K6
+    regenerates."""
     return tl_rand(seed, offsets) >= torch.tensor(rate, dtype=torch.float32)
 
 
@@ -141,20 +162,32 @@ def dropout_add_layernorm(
         return dropout_add_layernorm_plain(x, residual, gamma, beta, seed, rate, eps)
     _check_cuda(x, ("residual", residual), ("gamma", gamma), ("beta", beta))
     H = x.shape[-1]
-    if residual.dtype != x.dtype:
-        raise TypeError(f"residual {residual.dtype} != x {x.dtype}")
+    _check_kernel_args(x, residual, H, train=False)
     if gamma.shape != (H,) or beta.shape != (H,):
         raise ValueError(f"gamma/beta must be [{H}]")
-    x2 = x.reshape(-1, H).contiguous()
-    r2 = residual.reshape(-1, H).contiguous()
+    seed_i = _checked_seed(seed) if rate > 0.0 else 0
+    x2, r2 = (_aligned(t.reshape(-1, H)) for t in (x, residual))
+    g, b = _aligned(gamma.float()), _aligned(beta.float())
     out = torch.empty_like(x2)
+    n_rows, code = x2.shape[0], _DTYPE_CODES[x.dtype]
     with torch.cuda.device(x.device):
-        _triton_ln().launch(
-            x2, r2, gamma.contiguous(), beta.contiguous(), out,
-            _seed_int(seed) if rate > 0.0 else 0, float(rate), float(eps),
+        blocks = min(_blocks(x.device, H, code, rate > 0.0, False), -(-n_rows // 4))
+        status = _fn("plbt_ln_fwd")(
+            ab._ptr(x2), ab._ptr(r2), ab._ptr(g), ab._ptr(b), ab._ptr(out), n_rows, H, code,
+            blocks, seed_i & _M32, seed_i >> 32, float(rate), float(eps), ab._stream(x.device),
         )
+    build.check(status, "fused LN forward")
     LAUNCHES.add()
     return out.reshape(x.shape)
+
+
+def _check_kernel_args(x, residual, H: int, train: bool) -> None:
+    if x.dtype not in _DTYPE_CODES or residual.dtype != x.dtype:
+        raise TypeError(f"the fused LN kernels take float32/bfloat16 x and residual alike, "
+                        f"got {x.dtype} and {residual.dtype}")
+    reason = ln_kernel_refusal(H, x.dtype)
+    if reason:
+        raise ValueError(f"fused LN {'backward' if train else 'forward'}: {reason}")
 
 
 def _plain_keep(x, seed, rate: float, keep):
@@ -198,12 +231,7 @@ def dropout_add_layernorm_bwd(
         return dropout_add_layernorm_bwd_plain(dy, x, residual, gamma, seed, rate, eps)
     _check_cuda(x, ("residual", residual), ("gamma", gamma), ("dy", dy))
     H = x.shape[-1]
-    if x.dtype not in _DTYPE_CODES or residual.dtype != x.dtype:
-        raise TypeError(f"fused LN backward takes float32/bfloat16 x and residual alike, "
-                        f"got {x.dtype} and {residual.dtype}")
-    if H % 8 or not 8 <= H <= BWD_MAX_WIDTH:
-        raise ValueError(f"fused LN backward takes a width that is a multiple of 8 up to "
-                         f"{BWD_MAX_WIDTH}, got {H}")
+    _check_kernel_args(x, residual, H, train=True)
     seed_i = _checked_seed(seed) if rate > 0.0 else 0
     x2, r2 = (_aligned(t.reshape(-1, H)) for t in (x, residual))
     dy2 = _aligned(dy.reshape(-1, H).to(x.dtype))
@@ -214,7 +242,7 @@ def dropout_add_layernorm_bwd(
     dgdb = torch.empty((2, H), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         # a K6 block's four warps take a row each: no more blocks than that needs
-        blocks = min(_bwd_blocks(x.device, H, code, rate > 0.0), -(-n_rows // 4))
+        blocks = min(_blocks(x.device, H, code, rate > 0.0, True), -(-n_rows // 4))
         part = torch.empty((2, blocks, H), dtype=torch.float32, device=x.device)
         status = _fn("plbt_ln_bwd")(
             ab._ptr(x2), ab._ptr(r2), ab._ptr(g), ab._ptr(dy2), ab._ptr(dx), ab._ptr(dres),
@@ -226,12 +254,15 @@ def dropout_add_layernorm_bwd(
     return dx.reshape(x.shape), dres.reshape(x.shape), dgdb[0], dgdb[1]
 
 
-# the C entry points of csrc/fused_ln.cu: name -> argument types before the stream
+# the C entry points of csrc/fused_ln.cu: name -> argument types (the last
+# pointer of a launch is the stream)
 _P, _I, _U, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float,
                        ctypes.c_longlong)
 _SIGNATURES = {
-    "plbt_ln_bwd": (_P,) * 8 + (_I,) * 4 + (_U, _U, _F, _F),
-    "plbt_add_copy": (_P, _P, _P, _LL, _I, _I),
+    "plbt_ln_blocks": (_I,) * 4,
+    "plbt_ln_fwd": (_P,) * 5 + (_I,) * 4 + (_U, _U, _F, _F, _P),
+    "plbt_ln_bwd": (_P,) * 8 + (_I,) * 4 + (_U, _U, _F, _F, _P),
+    "plbt_add_copy": (_P, _P, _P, _LL, _I, _I, _P),
 }
 
 
@@ -240,22 +271,20 @@ def _fn(name: str):
     """A C entry point of ``csrc/fused_ln.cu``'s library, built and typed
     at first use."""
     fn = getattr(build.load("fused_ln"), name)
-    fn.argtypes = [*_SIGNATURES[name], ctypes.c_void_p]
+    fn.argtypes = list(_SIGNATURES[name])
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.cache
-def _bwd_blocks(device, H: int, code: int, dropout: bool) -> int:
-    """K6's grid at this width, dtype and dropout: blocks that fill every
-    SM once (the occupancy the compiled kernel allows)."""
-    fn = getattr(build.load("fused_ln"), "plbt_ln_bwd_blocks")
-    fn.argtypes = [ctypes.c_int] * 3
-    fn.restype = ctypes.c_int
+def _blocks(device, H: int, code: int, dropout: bool, backward: bool) -> int:
+    """K5's or K6's grid at this width, dtype and dropout: blocks that
+    fill every SM once (the occupancy the compiled kernel allows)."""
     with torch.cuda.device(device):
-        blocks = fn(H, code, int(dropout))
+        blocks = _fn("plbt_ln_blocks")(H, code, int(dropout), int(backward))
     if blocks < 1:
-        raise RuntimeError(f"fused LN backward: no grid for width {H}")
+        raise RuntimeError(f"fused LN {'backward' if backward else 'forward'}: no grid for "
+                           f"width {H}")
     return blocks
 
 
@@ -335,8 +364,9 @@ def add_copy_plain(x, residual):
 
 
 def dropout_mask(shape, seed: int, rate: float, device):
-    """K5's keep mask for ``shape`` at ``seed`` (uint8), made by the same
-    ``tl.rand`` call in a mask-only Triton kernel, for checks."""
+    """The kernels' keep mask for ``shape`` at ``seed`` (uint8), made by
+    Triton's own ``tl.rand`` in a mask-only Triton kernel: the oracle that
+    K5 and K6 are held to on the card."""
     keep = torch.empty(shape, dtype=torch.uint8, device=device)
     with torch.cuda.device(device):
         _triton_ln().launch_mask(keep, int(seed), float(rate))

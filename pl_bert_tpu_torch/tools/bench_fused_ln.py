@@ -7,22 +7,30 @@ The counterpart of ``tools/bench_fused_ln.py``: at the flagship
 [B·L, hidden] = [49152, 768] in bf16, a chain of 24 dependent calls (12
 layers × 2 LayerNorm sites; each call's output is the next one's input),
 timed with CUDA events over ``--steps`` chains after ``WARMUP`` warm-up
-chains (the first builds the CUDA library and compiles the Triton
-kernel, and a card that sat idle needs a few launches to reach its
-clocks):
+chains (the first builds the CUDA library, and a card that sat idle
+needs a few launches to reach its clocks). The kernels' forward chains
+are captured once in a CUDA graph and the replays timed: device time
+without the host's launch cost, which would set the pace at the serving
+forward's ``--rows 4096``; the rows with a backward or the plain version
+(whose generator a graph does not capture) are launched from the host:
 
 - the copy anchor (K9, ``fused_ln.add_copy``, CUDA C++): both operands
   read and one output written in 16-byte vectors over the flat elements —
   the card's floor for the forward's traffic (3 × N·H × itemsize), not
   K5's launch shape;
-- the fused forward (K5) at dropout rate 0 and 0.1: what the statistics
-  and the in-kernel random bits cost over the anchor;
+- the fused forward (K5, ``fused_ln.dropout_add_layernorm``, CUDA C++)
+  at dropout rate 0 and 0.1: what the statistics and the in-kernel
+  random bits cost over the anchor;
 - the plain PyTorch forward at rate 0.1: what the fusion buys;
 - forward + backward through K5/K6's ``autograd.Function`` at rate 0 and
   0.1, and through the plain version under autograd.
 
+The script calls only the port's public functions, so run as a file
+with another checkout first on ``PYTHONPATH`` it times that checkout's
+kernels.
+
 The TPU tool's row-block sweep is left behind with ``_block_rows``: K5
-picks its block from the width alone, K6 takes a warp a row. Prints the card
+and K6 take a warp a row. Prints the card
 and its power limit (``nvidia-smi``) beside the table. Needs a CUDA
 card; there is no CPU fallback.
 """
@@ -64,6 +72,21 @@ def _time_chain(step, steps: int) -> float:
     return start.elapsed_time(end) / steps
 
 
+def _time_graph(step, steps: int) -> float:
+    """ms per chain: ``step`` warmed up on a side stream, captured once in
+    a CUDA graph, and the replays timed as :func:`_time_chain` times."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(WARMUP):
+            step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    return _time_chain(graph.replay, steps)
+
+
 def run(rows: int = ROWS, hidden: int = HIDDEN, calls: int = CALLS, steps: int = STEPS,
         device: str = "cuda") -> dict:
     """{row name: ms per chain} for the seven rows of the table."""
@@ -103,16 +126,17 @@ def run(rows: int = ROWS, hidden: int = HIDDEN, calls: int = CALLS, steps: int =
             return leaf.grad
         return step
 
+    # row name → (chain, timer)
     cases = {
-        "copy-anchor        fwd": forward(lambda y, i: fused_ln.add_copy(y, res)),
-        "fused rate=0       fwd": forward(fused(0.0)),
-        "fused rate=0.1     fwd": forward(fused(0.1)),
-        "plain rate=0.1     fwd": forward(plain),
-        "fused rate=0   fwd+bwd": forward_backward(fused(0.0)),
-        "fused rate=0.1 fwd+bwd": forward_backward(fused(0.1)),
-        "plain rate=0.1 fwd+bwd": forward_backward(plain),
+        "copy-anchor        fwd": (forward(lambda y, i: fused_ln.add_copy(y, res)), _time_graph),
+        "fused rate=0       fwd": (forward(fused(0.0)), _time_graph),
+        "fused rate=0.1     fwd": (forward(fused(0.1)), _time_graph),
+        "plain rate=0.1     fwd": (forward(plain), _time_chain),
+        "fused rate=0   fwd+bwd": (forward_backward(fused(0.0)), _time_chain),
+        "fused rate=0.1 fwd+bwd": (forward_backward(fused(0.1)), _time_chain),
+        "plain rate=0.1 fwd+bwd": (forward_backward(plain), _time_chain),
     }
-    return {name: _time_chain(step, steps) for name, step in cases.items()}
+    return {name: timer(step, steps) for name, (step, timer) in cases.items()}
 
 
 def main(argv=None) -> dict:
@@ -129,7 +153,7 @@ def main(argv=None) -> dict:
     results = run(args.rows, args.hidden, args.calls, args.steps)
     print(card, flush=True)
     print(f"[N={args.rows}, H={args.hidden}] bf16, {args.calls}-call chain, "
-          f"{args.steps}-chain mean (CUDA events)")
+          f"{args.steps}-chain mean (CUDA events; kernel forwards: graph replay)")
     for name, ms in results.items():
         print(f"  {name:26s} {ms:8.3f} ms/chain  ({ms / args.calls:6.4f} ms/call)", flush=True)
     if args.json:

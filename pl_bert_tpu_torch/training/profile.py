@@ -40,7 +40,7 @@ GROUPS = (
     ("attention_bwd_delta", "K4 attention backward: delta pass"),
     ("attention_bwd_dq", "K4 / K8 attention backward: dq"),
     ("attention_bwd_dkdv", "K4 / K8 attention backward: dk/dv"),
-    ("_fwd_kernel", "K5 LN forward (Triton)"),
+    ("ln_fwd", "K5 LN forward (CUDA)"),
     ("ln_bwd", "K6 LN backward (CUDA; with its dgamma/dbeta reduction)"),
     *((key, "cuBLAS GEMMs (FFN, heads, weight gradients)")
       for key in ("gemm", "nvjet", "cutlass", "xmma")),

@@ -119,6 +119,54 @@ def test_fused_ln_dropout_keep_rate(dev, rate):
     assert torch.equal(y, again) and not torch.equal(y, other)
 
 
+@pytest.mark.parametrize("rate,seed", [(0.0, None), (0.1, 0), (0.1, 1), (0.1, 2**31 - 2)])
+@pytest.mark.parametrize("H", [8, 200, 768, 1000, 1024, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ln_forward_draws_tritons_mask(dev, dtype, H, rate, seed):
+    """K5 against its plain version fed Triton's own tl.rand mask (a
+    Triton kernel), at widths of one to eight 256-column slices, the last
+    partly idle: one element dropped differently moves its output by
+    about a standard deviation of its row, past the gate, so this holds
+    K5's mask to Triton's bit for bit."""
+    rng = np.random.default_rng(H)
+    N = 300
+    x, res = (torch.from_numpy(rng.standard_normal((N, H)).astype(np.float32)).to(dev, dtype)
+              for _ in range(2))
+    gamma = torch.from_numpy(1 + 0.1 * rng.standard_normal(H).astype(np.float32)).to(dev)
+    beta = torch.from_numpy(0.1 * rng.standard_normal(H).astype(np.float32)).to(dev)
+    keep = fused_ln.dropout_mask((N, H), seed, rate, dev) if rate else None
+    before = fused_ln.LAUNCHES.count
+    out = fused_ln.dropout_add_layernorm(x, res, gamma, beta, seed, rate)
+    assert fused_ln.LAUNCHES.count == before + 1
+    ref = fused_ln.dropout_add_layernorm_plain(x, res, gamma, beta, seed, rate, keep=keep)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (N, H)
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("H,seed", [(100, 1), (2056, 1), (4, 1), (768, -1), (768, 2**31 - 1)])
+def test_fused_ln_forward_refuses_what_it_does_not_take(dev, H, seed):
+    """A width that is no multiple of 8 or above 2048, or a seed outside
+    the range whose masks were held against Triton's, raises; so does a
+    dtype K5 is not built for."""
+    x = torch.zeros(4, H, device=dev, dtype=torch.bfloat16)
+    g, b = torch.ones(H, device=dev), torch.zeros(H, device=dev)
+    with pytest.raises(ValueError):
+        fused_ln.dropout_add_layernorm(x, x, g, b, seed, 0.1)
+    with pytest.raises(TypeError):
+        fused_ln.dropout_add_layernorm(x.half(), x.half(), g, b)
+
+
+def test_fused_ln_forward_is_deterministic(dev):
+    rng = np.random.default_rng(9)
+    x, res = (torch.from_numpy(rng.standard_normal((2048, 768)).astype(np.float32))
+              .to(dev, torch.bfloat16) for _ in range(2))
+    g, b = torch.ones(768, device=dev), torch.zeros(768, device=dev)
+    first = fused_ln.dropout_add_layernorm(x, res, g, b, 77, 0.1)
+    again = fused_ln.dropout_add_layernorm(x, res, g, b, 77, 0.1)
+    assert torch.equal(first, again)
+
+
 def _block_case(dev, dtype, B=3, L=100, E=256, heads=4):
     rng = np.random.default_rng(L + heads + 7)
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
@@ -231,25 +279,29 @@ def test_fused_ln_backward_is_deterministic(dev, rate):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("H", [8, 256, 512, 1000, 1024])
-def test_fused_ln_backward_widths(dev, H):
-    """Any width that is a multiple of 8 up to 1024: one to four 256-column
-    slices a lane, the last one partly idle."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("H", [8, 256, 512, 1000, 1024, 1032, 1536, 2048])
+def test_fused_ln_backward_widths(dev, H, dtype):
+    """Any width that is a multiple of 8 up to 2048: one to eight
+    256-column slices a lane, the last one partly idle; above four slices
+    the dγ/dβ partials live in shared memory."""
     rng = np.random.default_rng(H)
     N = 300
     x, res, dy = (torch.from_numpy(rng.standard_normal((N, H)).astype(np.float32))
-                  .to(dev, torch.bfloat16) for _ in range(3))
+                  .to(dev, dtype) for _ in range(3))
     gamma = torch.from_numpy(1 + 0.1 * rng.standard_normal(H).astype(np.float32)).to(dev)
     keep = fused_ln.dropout_mask((N, H), 4, 0.1, dev)
+    before = fused_ln.LAUNCHES_BWD.count
     got = fused_ln.dropout_add_layernorm_bwd(dy, x, res, gamma, 4, 0.1)
     ref = fused_ln.dropout_add_layernorm_bwd_plain(dy, x, res, gamma, 4, 0.1, keep=keep)
+    assert fused_ln.LAUNCHES_BWD.count == before + 1
     for a, r in zip(got, ref):
-        _close(a, r, torch.bfloat16 if a.dtype == torch.bfloat16 else torch.float32)
+        _close(a, r, dtype if a.dtype == dtype else torch.float32)
 
 
-@pytest.mark.parametrize("H,seed", [(100, 1), (1032, 1), (768, -1), (768, 2**31 - 1)])
+@pytest.mark.parametrize("H,seed", [(100, 1), (2056, 1), (768, -1), (768, 2**31 - 1)])
 def test_fused_ln_backward_refuses_what_it_does_not_take(dev, H, seed):
-    """A width that is no multiple of 8 or above 1024, or a seed outside
+    """A width that is no multiple of 8 or above 2048, or a seed outside
     the range whose masks were held against K5's, raises."""
     x = torch.zeros(4, H, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
@@ -300,6 +352,44 @@ def test_train_step_kernel_path_follows_plain_path(dev):
         state = ts.TrainState(model, tx.init(model))
         step = ts.make_train_step(model, tx)
         metrics[impl] = [{k: float(v) for k, v in step(state, b)[1].items()} for b in pool]
+    for k, p in zip(metrics["auto"], metrics["eager"]):
+        assert k["loss"] == pytest.approx(p["loss"], rel=1e-5)
+        assert k["grad_norm"] == pytest.approx(p["grad_norm"], rel=1e-4)
+
+
+@pytest.mark.parametrize("width,heads,kernels", [(1536, 24, True), (2560, 40, False)])
+def test_wide_model_trains_on_the_block_path(dev, width, heads, kernels):
+    """24 heads of 64 (width 1536) trains with K5/K6 at its LayerNorms,
+    as JAX fuses that width; 40 heads of 64 (width 2560, above what the
+    LN kernels take) runs its LN plain (decided when it is built) and the
+    attention on the kernels. Three fp32 steps without raising, which
+    follow the plain path as test_train_step_kernel_path_follows_plain_path
+    does."""
+    import dataclasses
+
+    from pl_bert_tpu_torch.config import ModelParams, TrainingParams
+    from pl_bert_tpu_torch.data.synthetic import full_length_batches
+    from pl_bert_tpu_torch.models.albert import build_model, init_params
+    from pl_bert_tpu_torch.ops import attention_block as ab
+    from pl_bert_tpu_torch.training import train_step as ts
+
+    mp = ModelParams(hidden_size=width, num_attention_heads=heads, intermediate_size=512,
+                     max_position_embeddings=64, num_hidden_layers=1, embedding_size=64,
+                     dropout=0.0)
+    pool = full_length_batches(3, 2, 64)
+    metrics = {}
+    counters = (ab.LAUNCHES_BWD, fused_ln.LAUNCHES, fused_ln.LAUNCHES_BWD)
+    for impl in ("auto", "eager"):
+        model = init_params(build_model(dataclasses.replace(mp, attention_impl=impl), "fp32"))
+        model = model.to(dev)
+        tx = ts.make_optimizer(TrainingParams(learning_rate=1e-3))
+        state = ts.TrainState(model, tx.init(model))
+        step = ts.make_train_step(model, tx)
+        before = [c.count for c in counters]
+        metrics[impl] = [{k: float(v) for k, v in step(state, b)[1].items()} for b in pool]
+        ran = [c.count > b for c, b in zip(counters, before)]
+        if impl == "auto":
+            assert ran == [True, kernels, kernels]
     for k, p in zip(metrics["auto"], metrics["eager"]):
         assert k["loss"] == pytest.approx(p["loss"], rel=1e-5)
         assert k["grad_norm"] == pytest.approx(p["grad_norm"], rel=1e-4)

@@ -168,3 +168,42 @@ def test_k6_k9_wrappers_take_plain_on_cpu_and_count_nothing(op):
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert counter.count == before
+
+
+# width → whether K5 and K6 take it
+REFUSAL_WIDTHS = {8: True, 768: True, 1024: True, 1032: True, 1536: True, 2048: True,
+                  2056: False, 100: False}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("width", sorted(REFUSAL_WIDTHS))
+def test_ln_kernel_refusal(width, dtype):
+    """The LN kernels take a width that is a multiple of 8 up to 2048, in
+    the forward and in training alike; the reason names the rule it
+    breaks, and other dtypes are refused."""
+    reason = fused_ln.ln_kernel_refusal(width, dtype)
+    assert (reason is None) == REFUSAL_WIDTHS[width], reason
+    if width % 8:
+        assert "multiple of 8" in reason
+    elif not REFUSAL_WIDTHS[width]:
+        assert str(fused_ln.MAX_WIDTH) in reason
+    assert "float16" in fused_ln.ln_kernel_refusal(width, torch.float16)
+
+
+def test_plain_fed_tl_rand_mask_matches_jax_kernel_math():
+    """With the mask the kernels draw (``tl_rand_keep``), the plain K5
+    computes the JAX ``_fwd_kernel``'s body: x / (1 - rate) where kept,
+    the residual added, ``_ln_stats`` and the affine, in fp32. The TPU's
+    own mask cannot be reproduced, so the mask stands in for it."""
+    import jax.numpy as jnp
+
+    n, h, seed, rate, eps = 7, 768, 12345, 0.1, 1e-12
+    x, res, gamma, beta = _inputs(seed=6, n=n, h=h)
+    keep = fused_ln.tl_rand_keep(seed, torch.arange(n * h), rate).reshape(n, h)
+    assert 0 < int((~keep).sum()) < n * h
+    y = np.where(keep.numpy(), x / (1.0 - rate), 0.0).astype(np.float32) + res
+    xhat, _ = jax_ln._ln_stats(jnp.asarray(y), eps)
+    ref = np.asarray(xhat * gamma + beta)
+    out = fused_ln.dropout_add_layernorm_plain(
+        *map(torch.from_numpy, (x, res, gamma, beta)), seed=seed, rate=rate, eps=eps, keep=keep)
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=1e-5)

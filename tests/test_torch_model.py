@@ -193,3 +193,42 @@ def test_config_defaults_match_config_yml():
         if hasattr(mp, f.name):
             assert getattr(cfg, f.name) == getattr(mp, f.name), f.name
     assert AlbertConfig.from_params(mp) == cfg
+
+
+@pytest.mark.parametrize("width,heads,kernels", [(1536, 24, True), (2560, 40, False)])
+def test_wide_model_ln_route(caplog, width, heads, kernels):
+    """A kernel-path model decides its LayerNorm route when it is built:
+    at 24 heads of 64 (width 1536) K5, and K5/K6 in training, as JAX
+    fuses that width; at 40 heads of 64 (width 2560, above what the LN
+    kernels take) the plain LN in both, with a warning that says why, as
+    JAX falls back to nn.LayerNorm where its kernels refuse. On the CPU
+    its forward equals the eager model's."""
+    import logging
+
+    from pl_bert_tpu_torch.ops import fused_ln
+
+    mp = dataclasses.replace(MP, hidden_size=width, num_attention_heads=heads,
+                             intermediate_size=64, max_position_embeddings=16,
+                             num_hidden_layers=1, embedding_size=32, attention_impl="auto")
+    cfg = AlbertConfig.from_params(mp)
+    with caplog.at_level(logging.WARNING, logger="pl_bert_tpu_torch.models.albert"):
+        torch.manual_seed(0)
+        model = AlbertModel(cfg)
+    warned = [r.getMessage() for r in caplog.records if "LayerNorm" in r.getMessage()]
+    assert model.encoder.layer.attention.impl == "block"
+    if kernels:
+        assert not warned
+        assert model.encoder.layer.attention.ln_fns == (fused_ln.dropout_add_layernorm,
+                                                        fused_ln.dropout_add_layernorm_train)
+    else:
+        assert len(warned) == 1 and str(fused_ln.MAX_WIDTH) in warned[0]
+        assert model.encoder.layer.attention.ln_fns == (fused_ln.dropout_add_layernorm_plain,) * 2
+    eager = AlbertModel.from_state_dict(dataclasses.replace(cfg, attention_impl="eager"),
+                                        model.state_dict())
+    rng = np.random.default_rng(3)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)))
+    mask = torch.from_numpy((np.arange(16)[None] < np.array([[16], [9]])).astype(np.int64))
+    with torch.inference_mode():
+        got, want = model(ids, mask)[0], eager(ids, mask)[0]
+    assert got.shape == (2, 16, width)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -133,11 +133,44 @@ def test_cuda_core_bound_of_the_backward(part, flops, want_ms):
     (49152 * 768, 60.0, 0.135405, "operations"),
 ])
 def test_k6_bound_takes_the_largest_term(draws, imad, want_ms, want_by):
-    ms, by, terms = smoke.ln_bwd_bound(49152, 768, 2, draws, {"imad": imad, "lop3": 12.0}, 132,
-                                       1980.0)
+    # K6 moves five [N, H] passes (x, res, dy read; dx, dres written), ~20 flops an element
+    ms, by, terms = smoke.ln_bound(49152, 768, 2, 5, 20.0, draws, {"imad": imad, "lop3": 12.0},
+                                   132, 1980.0)
     assert terms["bytes"] == pytest.approx(377_487_360 / 3.35e12 * 1e3, rel=1e-9)
     assert terms["fp32"] == pytest.approx(20 * 37_748_736 / 67e12 * 1e3, rel=1e-9)
     # the busier of the two integer pipes, IMAD here, sets the integer term
     assert terms["integer"] == pytest.approx(draws * imad / (64 * 132 * 1.98e9) * 1e3, rel=1e-9)
     assert by == want_by
     assert ms == pytest.approx(want_ms, rel=1e-4) == max(terms.values())
+
+
+@pytest.mark.parametrize("draws,want_ms,want_by", [
+    # K5 at [49152, 768] bf16: x and res read, out written, 3 x 37.7M x 2 bytes
+    # = 226 MB over 3.35 TB/s
+    (0, 0.067610, "bytes"),
+    # dropout 0.1 at 20 IMAD a draw: the integer term 0.0451 ms stays below it
+    (49152 * 768, 0.067610, "bytes"),
+])
+def test_k5_bound_takes_the_largest_term(draws, want_ms, want_by):
+    ms, by, terms = smoke.ln_bound(49152, 768, 2, 3, 10.0, draws, {"imad": 20.0, "lop3": 19.0},
+                                   132, 1980.0)
+    assert terms["bytes"] == pytest.approx(226_492_416 / 3.35e12 * 1e3, rel=1e-9)
+    assert terms["fp32"] == pytest.approx(10 * 37_748_736 / 67e12 * 1e3, rel=1e-9)
+    assert terms["integer"] == pytest.approx(draws * 20.0 / (64 * 132 * 1.98e9) * 1e3, rel=1e-9)
+    assert by == want_by
+    assert ms == pytest.approx(want_ms, rel=1e-4) == max(terms.values())
+
+
+@pytest.mark.parametrize("mangled,label", [
+    ("_ZN44_GLOBAL__N__35f85fe7_11_fused_ln_cu_b894cab86ln_fwdI13__nv_bfloat16Li3ELb1EEEvNS_9"
+     "LnFwdArgsE", "ln_fwd<bf16, 3, 1>"),
+    ("_ZN44_GLOBAL__N__35f85fe7_11_fused_ln_cu_b894cab86ln_fwdIfLi8ELb0EEEvNS_9LnFwdArgsE",
+     "ln_fwd<f32, 8, 0>"),
+    ("_ZN44_GLOBAL__N__35f85fe7_11_fused_ln_cu_b894cab86ln_bwdI13__nv_bfloat16Li3ELb0EEEvNS_9"
+     "LnBwdArgsE", "ln_bwd<bf16, 3, 0>"),
+    ("_ZN44_GLOBAL__N__35f85fe7_11_fused_ln_cu_b894cab813ln_bwd_reduceEPKfiiPf", "ln_bwd_reduce"),
+])
+def test_ln_label_names_the_fused_ln_kernels(mangled, label):
+    """Phase 2 reads K5's and K6's registers and SASS by these labels
+    (mangled names as ptxas and cuobjdump print them on the card)."""
+    assert smoke.ln_label(mangled) == label
