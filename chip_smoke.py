@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path, its training step and its
-Trainer entry point once on one CUDA card.
+"""Drive the PyTorch port's serving path, its training step, its Trainer
+entry point and its multi-task pretraining run once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -111,7 +111,28 @@ with random weights made from a fixed seed, in order:
    that ``step_12.pth`` loads strictly into a fresh model;
 17. runs the fused-LN microbench (``tools/bench_fused_ln.py``: the copy
    anchor, K5, K5+K6 and the plain version over a 24-call chain at
-   [49152, 768]) and prints its table.
+   [49152, 768]) and prints its table;
+18. the multi-task model (the 60,000-word grapheme head):
+   a. at the production shape (B=96, L=512, bf16, capacity 144) holds
+      ``masked_lm_loss_fused``'s value bit for bit to
+      ``masked_lm_loss_chunked``'s and its gradients to theirs (rel-L2
+      1e-2), and the gathered loss to the full-length one (rel 1e-5);
+      times the fused, the chunked and the full-length head forward and
+      backward, and splits the fused one into its parts;
+   b. runs the multi-task train step at B=8 (head of 60,000, capacity
+      set so one batch gathers and two fall back) on the block path
+      (K3, K4, K5, K6) and the flash path (K7, K8, K5, K6) against the
+      plain path within phase 13's gates;
+   c. runs bench.py's production configuration through
+      ``training.train.train()``: packed short samples with grapheme ids,
+      masked on the device, ``attention_impl: pallas``, the fused head at
+      capacity 144, gradient accumulation 2 of B=96, bf16, dropout 0.1,
+      6 steps; prints ms a step, real tokens/s, occupancy, peak memory,
+      the gather's fallbacks and the validation's ``val_token_*``; checks
+      the launch counters (the ``multitask`` path of the kernels line);
+      then ``training/evaluate.py`` on its ``step_6.pth`` (the run's own
+      validation numbers) and ``training/profile.py --multitask`` (the
+      step by group, the head by part, the capacity read's cost).
 
 Any failure raises and exits non-zero. The line before the last is a
 JSON record of the kernels; the last line is
@@ -124,6 +145,7 @@ from __future__ import annotations
 import base64
 import dataclasses
 import http.client
+import io
 import json
 import os
 import subprocess
@@ -231,12 +253,61 @@ model_params:
   dropout: 0.1
   attention_impl: pallas
 """
+# the grapheme head, fused against chunked (phase 18 a), bf16 at the
+# production shape: both take the same bf16 logits and form softmax −
+# onehot in fp32, but the fused path sums dW and db over all rows in fp32
+# while the chunked path's autograd rounds each chunk's product to bf16
+# and sums the chunks in bf16, and their fp32 cotangents differ in the
+# order of one product: a bf16 ulp (2^-8) or so apart
+HEAD_GRAD_TOL = {"rel_l2": 1e-2, "max_abs_rel": 5e-2}
+# the gathered loss against the full-length loss: the same positions'
+# losses summed per sample in another order (fp32)
+GATHER_TOL = 1e-5
+# the production run (phase 18 c): bench.py::run_production's
+# configuration at the flagship width; {out} and {steps} are filled in
+MT_CONFIG = """\
+training_params:
+  output_dir: {out}
+  mixed_precision: bf16
+  batch_size: 96
+  grad_accum_steps: 2
+  fused_lm_head: true
+  lm_head_capacity: 144
+  save_interval: {steps}
+  log_interval: 1
+  num_steps: {steps}
+  learning_rate: 7.0e-5
+  training_dataset: "synthetic:6000:0:8-30"
+dataset_params:
+  max_seq_length: 512
+  ondevice_masking: true
+  sequence_packing: true
+model_params:
+  hidden_size: 768
+  num_attention_heads: 12
+  intermediate_size: 2048
+  max_position_embeddings: 512
+  num_hidden_layers: 12
+  dropout: 0.1
+  attention_impl: pallas
+  num_token_vocab: 60000
+"""
+MT_STEPS = 6
 MAX_BATCH = 8
 N_CLIENTS, PER_CLIENT = 4, 8
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class Tee(io.StringIO):
+    """Captures what is printed while passing it on to the real stdout."""
+
+    def write(self, text):
+        sys.__stdout__.write(text)
+        sys.__stdout__.flush()
+        return super().write(text)
 
 
 def max_sm_clock_mhz() -> float:
@@ -1704,7 +1775,6 @@ def phase_packed_run(torch, workdir: str) -> tuple[dict, dict]:
     """16. the Trainer through its normal entry on a packed,
     on-device-masked run on the flash path: 8 steps, then a resume to 12."""
     import contextlib
-    import io
 
     import numpy as np
 
@@ -1715,12 +1785,6 @@ def phase_packed_run(torch, workdir: str) -> tuple[dict, dict]:
     out_dir = os.path.join(workdir, "runs")
     config_path = os.path.join(workdir, "packed_run.yml")
     run_dir = os.path.join(out_dir, "smoke")
-
-    class Tee(io.StringIO):
-        def write(self, text):
-            sys.__stdout__.write(text)
-            sys.__stdout__.flush()
-            return super().write(text)
 
     def launch(steps: int, paths) -> tuple[str, dict, float]:
         for path in paths:
@@ -1795,6 +1859,295 @@ def phase_packed_run(torch, workdir: str) -> tuple[dict, dict]:
     run = {"step_ms": 1e3 / sps, "tokens_per_s": tokens * occupancy, "occupancy": occupancy,
            "losses": losses}
     return run, total
+
+
+def head_gate(name: str, out, ref) -> dict:
+    """Gate a grapheme-head gradient, fused against chunked, at
+    ``HEAD_GRAD_TOL``: rel-L2, and max-abs relative to the reference's
+    largest magnitude (the head's gradients are ~1e-4 in size)."""
+    err = errors(out, ref)
+    scale = float(ref.float().abs().max())
+    ok = (out.isfinite().all() and err["rel_l2"] <= HEAD_GRAD_TOL["rel_l2"]
+          and err["max_abs"] <= HEAD_GRAD_TOL["max_abs_rel"] * scale)
+    log(f"  {name}: max_abs {err['max_abs']:.3e} (of {scale:.3e}) rel_l2 {err['rel_l2']:.3e} "
+        f"(tol {HEAD_GRAD_TOL['max_abs_rel']:.0e} of the scale / {HEAD_GRAD_TOL['rel_l2']:.0e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} outside tolerance: {err}")
+    return err
+
+
+def head_cost(B: int, L: int, rows: int, H: int, V: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of the fused grapheme head's forward and backward on
+    ``rows`` gathered positions a sample: the logits, dh and dW products
+    (2·B·rows·H·V each); bf16 hidden read and dh written, the fp32 head
+    (W, b) read and its gradients written, the int32 labels and the bool
+    mask read."""
+    return (3 * 2 * B * rows * H * V,
+            2 * B * rows * H * 2 + 2 * (V * H + V) * 4 + B * L * (4 + 1))
+
+
+def phase_multitask_head(torch) -> dict:
+    """18 a. the grapheme head's losses at the production shape (B=96,
+    L=512, hidden 768, vocabulary 60,000, bf16, capacity 144): the fused
+    value against the chunked value and their gradients, the gathered
+    loss against the full-length one; each timed forward and backward,
+    and the fused head split into its parts (torch.profiler)."""
+    import numpy as np
+
+    from pl_bert_tpu_torch.ops import masked_ce
+    from pl_bert_tpu_torch.training.profile import HEAD_PARTS, head_parts
+
+    B, L, H, V, capacity = 96, 512, 768, 60_000, 144
+    log(f"phase 18 a: the grapheme head at the production shape: [{B}, {L}, {H}] bf16 hidden, "
+        f"a head of {V}, capacity {capacity}")
+    rng = np.random.default_rng(SEED + 18)
+    dev = DEV
+    hidden = torch.from_numpy(rng.standard_normal((B, L, H), dtype=np.float32)).to(
+        dev, torch.bfloat16).requires_grad_()
+    weight = torch.from_numpy(0.02 * rng.standard_normal((V, H), dtype=np.float32)).to(dev)
+    weight.requires_grad_()
+    bias = torch.from_numpy(0.02 * rng.standard_normal(V, dtype=np.float32)).to(dev)
+    bias.requires_grad_()
+    labels = torch.from_numpy(rng.integers(5, V, (B, L)).astype(np.int32)).to(dev)
+    # about 58 valid masked positions a row, as the production masking gives
+    mask = torch.from_numpy(rng.random((B, L)) < 58 / L).to(dev)
+    lengths = torch.full((B,), L, dtype=torch.int32, device=dev)
+    rows = int(mask.sum(1).max())
+    if rows > capacity:
+        raise AssertionError(f"a row holds {rows} masked positions, more than {capacity}")
+
+    def run(fused: bool, cap: int, grad: bool = True):
+        for t in (hidden, weight, bias):
+            t.grad = None
+        with torch.set_grad_enabled(grad):
+            loss = masked_ce.masked_lm_loss(hidden, weight, bias, labels, mask, lengths,
+                                            capacity=cap, fused=fused)
+        if grad:
+            loss.backward()
+        return loss.detach()
+
+    fused = run(True, capacity)
+    fused_grads = [t.grad.clone() for t in (hidden, weight, bias)]
+    chunked = run(False, capacity)
+    chunked_grads = [t.grad.clone() for t in (hidden, weight, bias)]
+    full = run(True, 0)
+    full_chunked = run(False, 0, grad=False)
+    log(f"  loss: fused {fused.item():.9f}, chunked {chunked.item():.9f} (gathered); "
+        f"full length {full.item():.9f}")
+    if fused.item() != chunked.item() or full.item() != full_chunked.item():
+        raise AssertionError("the fused loss is not the chunked loss bit for bit")
+    rel = abs(fused.item() - full.item()) / abs(full.item())
+    log(f"  gathered against full length: rel {rel:.2e} (tol {GATHER_TOL:.0e}) "
+        f"{'ok' if rel <= GATHER_TOL else 'FAIL'}")
+    if not np.isfinite(fused.item()) or rel > GATHER_TOL:
+        raise AssertionError(f"the gathered loss is off the full-length loss: {rel}")
+    errs = {name: head_gate(f"{name}, fused against chunked", f, c)["rel_l2"]
+            for name, f, c in zip(("dhidden", "dW", "db"), fused_grads, chunked_grads)}
+    del fused_grads, chunked_grads
+
+    times = {}
+    for label, fused_, cap in (("fused, gathered", True, capacity),
+                               ("chunked, gathered", False, capacity),
+                               ("fused, full length", True, 0)):
+        times[label] = time_ms(torch, lambda: run(fused_, cap), iters=3, warmup=1)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run(True, capacity)
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernel_ms = sum(e.time_range.elapsed_us() for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.name.startswith("lm_head.")) / 1e3
+    parts = head_parts(events)
+    flops, nbytes = head_cost(B, L, capacity, H, V)
+    bound, by = bound_ms(flops, nbytes)
+    log(f"  forward and backward, ms a micro-batch (CUDA events): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f"; bound {bound:.3f} ms ({flops / 1e12:.2f} TFLOP, {by}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    log(f"  the fused head's device time by part (torch.profiler): "
+        + ", ".join(f"{p} {parts[p]:.3f}" for p in HEAD_PARTS)
+        + f"; other {kernel_ms - sum(parts.values()):.3f}; all kernels {kernel_ms:.3f} ms")
+    del hidden, weight, bias
+    torch.cuda.empty_cache()
+    return {"times": times, "parts": parts, "bound_ms": bound, "grad_rel_l2": errs,
+            "gather_rel": rel}
+
+
+def phase_multitask_step(torch) -> None:
+    """18 b. the multi-task train step at B=8, L=512, flagship width and a
+    head of 60,000: 3 steps on the block path and the flash path against
+    the plain path, dropout 0, the fused head at a capacity some batches
+    overflow."""
+    import dataclasses
+
+    import numpy as np
+
+    from pl_bert_tpu_torch.config import Config
+    from pl_bert_tpu_torch.data.synthetic import full_length_batches
+    from pl_bert_tpu_torch.models.albert import build_model, init_params
+    from pl_bert_tpu_torch.ops import masked_ce
+    from pl_bert_tpu_torch.training import train_step as ts
+
+    config = Config()
+    mp = dataclasses.replace(config.model_params, dropout=0.0, num_token_vocab=60_000)
+    tp, L = config.training_params, config.dataset_params.max_seq_length
+    rng = np.random.default_rng(SEED + 19)
+    pool8 = full_length_batches(3, 8, L)
+    for b in pool8:
+        b["token_ids"] = rng.integers(5, mp.num_token_vocab, (8, L)).astype(np.int32)
+    most = [int((b["mask_positions"] & (np.arange(L)[None] < b["lengths"][:, None]))
+                .sum(1).max()) for b in pool8]
+    capacity = min(most)  # the batch with the fewest gathers; the others fall back
+    if max(most) <= capacity:
+        raise AssertionError(f"no batch overflows capacity {capacity}: {most}")
+    log(f"phase 18 b: multi-task train step (head of {mp.num_token_vocab}, fused, capacity "
+        f"{capacity}; the batches' fullest rows {most}), block path (auto) and flash path "
+        "(pallas) against the plain path: 3 steps, B=8, bf16, dropout 0")
+    losses, uses = {}, {"auto": ("attention_block_train", "attention_block_bwd"),
+                        "pallas": ("flash_attention", "flash_attention_bwd")}
+    for impl in ("auto", "pallas", "eager"):
+        model = init_params(build_model(dataclasses.replace(mp, attention_impl=impl),
+                                        tp.mixed_precision), seed=SEED).to(DEV)
+        tx = ts.make_optimizer(tp)
+        state = ts.TrainState(model, tx.init(model))
+        step = ts.make_train_step(model, tx, seed=tp.seed, fused_lm_head=True,
+                                  lm_head_capacity=capacity)
+        for c in (masked_ce.GATHERED, masked_ce.FALLBACKS):
+            c.reset()
+        counters = reset_counters()
+        losses[impl] = [{k: float(v) for k, v in step(state, b)[1].items()} for b in pool8]
+        launches = read_counters(counters)
+        decided = (masked_ce.GATHERED.count, masked_ce.FALLBACKS.count)
+        log(f"  {impl}: gathered {decided[0]}, full length {decided[1]}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        if decided != (1, 2):
+            raise AssertionError(f"{impl}: gathered/full-length {decided}, not (1, 2)")
+        needed = uses.get(impl, ()) + (("dropout_add_layernorm", "dropout_add_layernorm_bwd")
+                                       if impl != "eager" else ())
+        if any(launches[k] == 0 for k in needed) or (impl == "eager" and any(launches.values())):
+            raise AssertionError(f"{impl}: launch counts {launches}")
+        del model, state, tx
+        torch.cuda.empty_cache()
+    for impl in ("auto", "pallas"):
+        for s, (k, p) in enumerate(zip(losses[impl], losses["eager"])):
+            rel = {m: abs(k[m] - p[m]) / abs(p[m]) for m in ("loss", "grad_norm")}
+            ok = all(rel[m] <= TRAIN_TOL[m] for m in rel) and all(
+                np.isfinite(k[m]) for m in ("loss", "grad_norm", "token_loss"))
+            log(f"  {impl} step {s}: loss {k['loss']:.6f} vs {p['loss']:.6f} (token "
+                f"{k['token_loss']:.6f} vs {p['token_loss']:.6f}; rel {rel['loss']:.2e}), "
+                f"grad_norm {k['grad_norm']:.6f} vs {p['grad_norm']:.6f} "
+                f"(rel {rel['grad_norm']:.2e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"multi-task step {s}: {impl} path off the plain path: {rel}")
+
+
+def phase_production_run(torch, workdir: str) -> tuple[dict, dict]:
+    """18 c. bench.py's production run through ``training.train.train()``:
+    the multi-task model (a head of 60,000), packed short samples masked
+    on the device, ``attention_impl: pallas``, the fused head at capacity
+    144, gradient accumulation 2 of B=96, L=512, bf16, dropout 0.1; then
+    ``training/evaluate.py`` on its last checkpoint, and
+    ``training/profile.py --multitask`` for the step's breakdown."""
+    import contextlib
+
+    import numpy as np
+
+    from pl_bert_tpu_torch.config import Config
+    from pl_bert_tpu_torch.ops import masked_ce
+    from pl_bert_tpu_torch.training import profile
+    from pl_bert_tpu_torch.training.evaluate import evaluate
+    from pl_bert_tpu_torch.training.train import make_synthetic_corpus, train
+
+    out_dir = os.path.join(workdir, "runs")
+    config_path = os.path.join(workdir, "production.yml")
+    run_dir = os.path.join(out_dir, "production")
+    with open(config_path, "w", encoding="utf-8") as f:
+        f.write(MT_CONFIG.format(out=out_dir, steps=MT_STEPS))
+    config = Config.load(config_path)
+    tp, mp = config.training_params, config.model_params
+    # the training_dataset spec's corpus (bench.py's short samples with
+    # random grapheme ids), made once for the run and the evaluation
+    corpus = make_synthetic_corpus(6000, token_vocab=mp.num_token_vocab,
+                                   words_per_sample=(8, 30))
+    log(f"phase 18 c: the production run through training.train.train(): a head of "
+        f"{mp.num_token_vocab}, packed, pallas, fused head at capacity {tp.lm_head_capacity}, "
+        f"{tp.grad_accum_steps} x B={tp.batch_size}, L=512, bf16, dropout {mp.dropout}, "
+        f"{MT_STEPS} steps")
+
+    for c in (masked_ce.GATHERED, masked_ce.FALLBACKS):
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    printed = Tee()
+    counters = reset_counters()  # the multi-task path's run starts here
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        final = train({"config_path": config_path, "run_name": "production", "device": DEV},
+                      dataset=corpus)
+    wall = time.perf_counter() - t0
+    launches = read_counters(counters)  # the multi-task path's run ends here
+    peak = torch.cuda.max_memory_allocated()
+    decided = (masked_ce.GATHERED.count, masked_ce.FALLBACKS.count)
+    if final != MT_STEPS:
+        raise AssertionError(f"the production run stopped at step {final}")
+    with open(os.path.join(run_dir, "metrics.jsonl"), encoding="utf-8") as f:
+        records = [json.loads(line) for line in f]
+    steps = [r for r in records if "loss" in r]
+    vals = [r for r in records if "val_token_loss" in r]
+    keys = ("loss", "phoneme_loss", "token_loss")
+    if [r["step"] for r in steps] != list(range(1, MT_STEPS + 1)) or not all(
+            np.isfinite(r[k]) and r["token_loss"] > 0 for r in steps for k in keys):
+        raise AssertionError(f"production run metrics: {steps}")
+    val_keys = ("val_phoneme_loss", "val_masked_accuracy", "val_token_loss",
+                "val_token_accuracy")
+    if [r["step"] for r in vals] != [0, MT_STEPS] or not all(
+            np.isfinite(r[k]) for r in vals for k in val_keys):
+        raise AssertionError(f"production run validation: {vals}")
+
+    n = mp.num_hidden_layers
+    micro = MT_STEPS * tp.grad_accum_steps
+    evals, rem = divmod(launches["flash_attention"] - n * micro, n)
+    expect = dict.fromkeys(launches, 0)
+    expect.update({"flash_attention": n * (micro + evals), "flash_attention_bwd": n * micro,
+                   "dropout_add_layernorm": 2 * n * (micro + evals),
+                   "dropout_add_layernorm_bwd": 2 * n * micro})
+    log(f"  launch counters over {MT_STEPS} steps ({micro} micro-batches) and {evals} "
+        f"validation forwards: {launches}")
+    if rem or evals < 1 or launches != expect:
+        raise AssertionError(f"launch counts {launches} != {expect}")
+    # the rows' occupancy from the packing line's row count: short samples
+    # are never cropped, so the rows hold every sample's phonemes and
+    # separators
+    rows = int(printed.getvalue().split("samples → ")[1].split(" rows")[0])
+    occupancy = sum(min(sum(len(w) + 1 for w in r["phonemes"]), 512) for r in corpus) / (
+        rows * 512)
+    sps = float(np.median([r["steps_per_sec"] for r in steps if "steps_per_sec" in r]))
+    positions = sps * tp.grad_accum_steps * tp.batch_size * config.dataset_params.max_seq_length
+    log(f"  losses {[round(r['loss'], 4) for r in steps]} (token "
+        f"{[round(r['token_loss'], 4) for r in steps]}); validation "
+        + "; ".join(f"step {r['step']}: " + ", ".join(f"{k} {r[k]:.4f}" for k in val_keys)
+                    for r in vals))
+    log(f"  production run: {1e3 / sps:.1f} ms a step (median), {positions * occupancy:.0f} "
+        f"real tokens/s at {occupancy:.1%} occupancy; peak device memory {peak / 2**30:.2f} GiB "
+        f"({peak} bytes); the capacity gather held {decided[0]} times and fell back to the "
+        f"full length {decided[1]} times (training and validation); the call took "
+        f"{wall:.1f} s with set-up, validation and a checkpoint")
+
+    log("phase 18 c: training/evaluate.py on the run's last checkpoint")
+    scored = evaluate({"checkpoint": run_dir, "config_path": config_path, "device": DEV},
+                      dataset=corpus)
+    if not scored["checkpoint"].endswith(f"step_{MT_STEPS}.pth") or any(
+            abs(scored[k] - vals[-1][k]) > 1e-5 * max(abs(vals[-1][k]), 1.0)
+            for k in val_keys):
+        raise AssertionError(f"evaluate {scored} is not the run's validation {vals[-1]}")
+    log("phase 18 c: training/profile.py --multitask (the step's kernels by group, the head "
+        "by part)")
+    profile.main(["--multitask", "--steps", "3", "--top", "12"])
+    run = {"step_ms": 1e3 / sps, "tokens_per_s": positions * occupancy,
+           "occupancy": occupancy, "peak_bytes": peak, "gathered": decided[0],
+           "fallbacks": decided[1]}
+    return run, launches
 
 
 def phase_microbench(torch) -> dict:
@@ -1872,9 +2225,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         run, run_launches = phase_packed_run(torch, workdir)
     bench_launches = phase_microbench(torch)
+    torch.cuda.empty_cache()
+    head = phase_multitask_head(torch)
+    phase_multitask_step(torch)
+    with tempfile.TemporaryDirectory() as workdir:
+        production, mt_launches = phase_production_run(torch, workdir)
+    missing = [k for k in ("dropout_add_layernorm", "dropout_add_layernorm_bwd",
+                           "flash_attention", "flash_attention_bwd") if not mt_launches[k]]
+    if missing:
+        raise AssertionError(f"the multi-task path launched no {missing}")
 
     paths = {"serving": (serve_launches, serving), "training": (train_launches, training),
-             "packed_run": (run_launches, flash), "microbench": (bench_launches, flash)}
+             "packed_run": (run_launches, flash), "microbench": (bench_launches, flash),
+             "multitask": (mt_launches, flash)}
     kernels = []
     for name, (route, source, replaces, path) in KERNELS.items():
         launches, measured = paths[path]
@@ -1894,6 +2257,11 @@ def main() -> int:
         f"phoneme tokens/s (B=96, L=512, bf16, dropout 0.1)")
     log(f"packed run, flash path: {run['step_ms']:.1f} ms a step, {run['tokens_per_s']:.0f} "
         f"phoneme tokens/s at {run['occupancy']:.0%} occupancy (B=96, L=512, bf16, dropout 0.1)")
+    log(f"production run (multi-task, packed, flash path, accumulation 2): "
+        f"{production['step_ms']:.1f} ms a step, {production['tokens_per_s']:.0f} real tokens/s "
+        f"at {production['occupancy']:.1%} occupancy, peak {production['peak_bytes'] / 2**30:.2f} "
+        f"GiB; the grapheme head {head['times']['fused, gathered']:.2f} ms a micro-batch "
+        f"(bound {head['bound_ms']:.2f})")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,14 +2,15 @@
 
 The port's ``AlbertModel`` state dict has HF ``AlbertModel``'s keys,
 which are also the ``encoder.`` part of the reference's ``step_N.pth``;
-``PhonemeOnlyModel`` adds ``phoneme_predictor.weight/bias``. So:
+``PhonemeOnlyModel`` adds ``phoneme_predictor.weight/bias`` and
+``MultiTaskModel`` also ``token_predictor.weight/bias``. So:
 
 - a Flax param tree (numpy leaves) converts with the key map below, a
   copy of ``pl_bert_tpu/export/to_hf.py:28-113`` kept here so the port
   imports nothing of the JAX package: the encoder alone
   (:func:`state_dict_from_jax` / :func:`jax_from_state_dict`) or the
-  whole phoneme-only model (:func:`model_state_dict_from_jax` /
-  :func:`jax_from_model_state_dict`);
+  whole model, phoneme-only or multi-task
+  (:func:`model_state_dict_from_jax` / :func:`jax_from_model_state_dict`);
 - a reference ``.pth`` — the ``{'net', 'step', 'epoch', ...}`` save that
   ``pl_bert_tpu/export/to_torch.py`` writes, or a bare state dict — loads
   with :func:`load_reference_pth`. An orbax run reaches the port through
@@ -73,6 +74,11 @@ _MODEL_MAP = [
     ("phoneme_predictor.weight", ("phoneme_predictor", "kernel"), True),
     ("phoneme_predictor.bias", ("phoneme_predictor", "bias"), False),
 ]
+# the multi-task model's grapheme head (pl_bert_tpu/export/from_torch.py:55-62)
+_TOKEN_MAP = [
+    ("token_predictor.weight", ("token_predictor", "kernel"), True),
+    ("token_predictor.bias", ("token_predictor", "bias"), False),
+]
 
 
 def _get(tree: dict, path: tuple[str, ...]):
@@ -118,15 +124,21 @@ def jax_from_state_dict(state_dict: dict) -> dict:
 
 
 def model_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
-    """A ``PhonemeOnlyModel``'s Flax tree ``{"encoder": …,
-    "phoneme_predictor": {kernel, bias}}`` → the reference ``.pth``'s
-    keys (``encoder.*``, ``phoneme_predictor.weight/bias``), fp32."""
-    return _to_state_dict(params, _MODEL_MAP)
+    """A model's Flax tree ``{"encoder": …, "phoneme_predictor": {kernel,
+    bias}[, "token_predictor": {kernel, bias}]}`` → the reference
+    ``.pth``'s keys (``encoder.*``, ``phoneme_predictor.weight/bias``[,
+    ``token_predictor.weight/bias``]), fp32; a kernel [H, V] becomes a
+    weight [V, H]."""
+    return _to_state_dict(params, _model_map("token_predictor" in params))
 
 
 def jax_from_model_state_dict(state_dict: dict) -> dict:
     """The inverse of :func:`model_state_dict_from_jax`."""
-    return _to_tree(state_dict, _MODEL_MAP)
+    return _to_tree(state_dict, _model_map("token_predictor.weight" in state_dict))
+
+
+def _model_map(multitask: bool) -> list:
+    return _MODEL_MAP + _TOKEN_MAP if multitask else _MODEL_MAP
 
 
 def encoder_state_dict(state_dict: dict) -> dict[str, torch.Tensor]:

@@ -4,8 +4,9 @@ A shared-layer ALBERT (one layer applied ``num_hidden_layers`` times,
 factorized embedding vocab → embedding_size → hidden_size), its serving
 forward and its training forward (``deterministic=False``: dropout, and
 gradients through the kernels' ``autograd.Function``s), and
-``PhonemeOnlyModel``, the encoder with the masked-phoneme head.
-``MultiTaskModel``, int8 and remat come with later slices.
+``PhonemeOnlyModel``, the encoder with the masked-phoneme head, and
+``MultiTaskModel``, which adds the grapheme (token) head. int8 and remat
+come with later slices.
 
 Submodules carry HF ``AlbertModel``'s names, so ``state_dict()`` keys are
 exactly the names of ``pl_bert_tpu/export/to_hf.py:28-76`` and a
@@ -510,6 +511,11 @@ class AlbertModel(nn.Module):
         return hidden, pooled
 
 
+def _head(layer: nn.Linear, hidden, dtype):
+    """A prediction head's fp32 logits, projected in the compute dtype."""
+    return _linear(hidden, {"w": layer.weight, "b": layer.bias}, dtype).float()
+
+
 class PhonemeOnlyModel(nn.Module):
     """Encoder + masked-phoneme head, the counterpart of
     ``pl_bert_tpu/models/albert.py:562-578``: fp32 logits [B, L, V]. Its
@@ -529,23 +535,50 @@ class PhonemeOnlyModel(nn.Module):
             position_ids=position_ids, deterministic=deterministic,
             dropout_seeds=dropout_seeds,
         )
-        head = self.phoneme_predictor
-        logits = _linear(hidden, {"w": head.weight, "b": head.bias}, self.cfg.dtype)
-        return logits.float()
+        return _head(self.phoneme_predictor, hidden, self.cfg.dtype)
+
+
+class MultiTaskModel(PhonemeOnlyModel):
+    """Encoder + phoneme head + grapheme (token) head, the counterpart of
+    ``pl_bert_tpu/models/albert.py:581-606``; its state dict adds
+    ``token_predictor.weight/bias`` to the phoneme-only model's."""
+
+    def __init__(self, cfg: AlbertConfig, num_phonemes: int = 188,
+                 num_tokens: int = 60_000) -> None:
+        super().__init__(cfg, num_phonemes)
+        self.token_predictor = nn.Linear(cfg.hidden_size, num_tokens)
+
+    def forward(self, input_ids, attention_mask=None, segment_ids=None,
+                position_ids=None, deterministic: bool = True, dropout_seeds=None,
+                project_tokens: bool = True):
+        """(phoneme logits, token logits), both fp32; with
+        ``project_tokens=False`` (phoneme logits, hidden in the compute
+        dtype), so the [B, L, num_tokens] logits never exist and the loss
+        projects the hidden states chunk by chunk
+        (``ops/masked_ce.py::masked_lm_loss``)."""
+        hidden, _ = self.encoder(
+            input_ids, attention_mask, segment_ids=segment_ids,
+            position_ids=position_ids, deterministic=deterministic,
+            dropout_seeds=dropout_seeds,
+        )
+        phoneme = _head(self.phoneme_predictor, hidden, self.cfg.dtype)
+        if not project_tokens:
+            return phoneme, hidden
+        return phoneme, _head(self.token_predictor, hidden, self.cfg.dtype)
 
 
 def build_model(params, mixed_precision: str = "bf16") -> PhonemeOnlyModel:
     """The counterpart of ``pl_bert_tpu/models/albert.py::build_model``
-    (:609-621) for the phoneme-only model; ``params`` has
-    ``ModelParams``' attribute names. Parameters are created with
-    torch's default init; :func:`init_params` gives the JAX package's
-    initial distribution, and ``export/bridge.py`` loads JAX's own."""
-    if getattr(params, "num_token_vocab", 0) > 0:
-        raise NotImplementedError(
-            "num_token_vocab > 0 (the multi-task grapheme head) is not yet ported"
-        )
+    (:609-621): phoneme-only unless ``num_token_vocab`` is set, then
+    :class:`MultiTaskModel`; ``params`` has ``ModelParams``' attribute
+    names. Parameters are created with torch's default init;
+    :func:`init_params` gives the JAX package's initial distribution, and
+    ``export/bridge.py`` loads JAX's own."""
     dtype = torch.bfloat16 if mixed_precision in ("bf16", "fp16") else torch.float32
-    return PhonemeOnlyModel(AlbertConfig.from_params(params, dtype=dtype), params.vocab_size)
+    cfg = AlbertConfig.from_params(params, dtype=dtype)
+    if getattr(params, "num_token_vocab", 0) > 0:
+        return MultiTaskModel(cfg, params.vocab_size, params.num_token_vocab)
+    return PhonemeOnlyModel(cfg, params.vocab_size)
 
 
 @torch.no_grad()

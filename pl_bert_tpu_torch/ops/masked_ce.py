@@ -1,20 +1,37 @@
-"""Masked cross-entropy over the phoneme head, in plain PyTorch.
+"""Masked cross-entropy over the phoneme head and the grapheme head, in
+plain PyTorch.
 
 The counterpart of ``pl_bert_tpu/ops/masked_ce.py`` (:26-58
-``valid_positions`` and ``masked_phoneme_loss``, :439-450
+``valid_positions`` and ``masked_phoneme_loss``; :61-128
+``masked_lm_loss_chunked``; :131-265 ``masked_lm_loss_fused``; :268-326
+``masked_lm_loss``; :329-419 ``masked_lm_metrics``; :439-450
 ``masked_accuracy``), with the reference's semantics:
 
     per-sample mean CE over that sample's masked positions,
     then mean over samples that have ≥1 masked position;
     0.0 if no sample in the batch has masks.
 
-No kernel: the JAX side had none here either. The multi-task grapheme
-head's losses are not ported yet.
+No kernel: the JAX side had none here either (its large-vocabulary head
+is XLA). The grapheme head's functions take the head in ``nn.Linear``'s
+layout (``weight`` [V, H], ``bias`` [V]; JAX's kernel is [H, V]) and
+project ``chunk_size`` positions at a time, so only one [B, chunk, V]
+plane lives at once. The head runs in the hidden states' dtype (the
+compute dtype) with fp32 logits, as Flax's Dense does.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
+
+from pl_bert_tpu_torch.runtime.build import LaunchCounter
+
+# how often the grapheme head's gather held every row's valid positions,
+# and how often the exact full-length path ran instead
+GATHERED = LaunchCounter("lm_head_gathered")
+FALLBACKS = LaunchCounter("lm_head_full_length")
 
 
 def valid_positions(mask_positions, lengths, L: int):
@@ -27,6 +44,17 @@ def valid_positions(mask_positions, lengths, L: int):
     return mask_positions.bool() & in_range
 
 
+def _average(sums, counts):
+    """Per-sample mean over masked positions, then the mean over the
+    samples with ≥1 of them (0.0 if none has any), from fp32 per-sample
+    sums and counts."""
+    has_mask = counts > 0
+    per_sample_mean = sums / counts.clamp_min(1.0)
+    n_with_mask = has_mask.float().sum()
+    total = torch.where(has_mask, per_sample_mean, 0.0).sum()
+    return torch.where(n_with_mask > 0, total / n_with_mask.clamp_min(1.0), 0.0)
+
+
 def masked_phoneme_loss(logits, labels, mask_positions, lengths=None):
     """Reference-equivalent masked CE (fp32 scalar tensor) from fp32
     logits [B, L, V], int labels [B, L], bool mask positions [B, L] and
@@ -35,12 +63,236 @@ def masked_phoneme_loss(logits, labels, mask_positions, lengths=None):
     logp = torch.log_softmax(logits.float(), dim=-1)
     token_nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
     w = valid.float()
-    per_sample_count = w.sum(dim=1)
-    has_mask = per_sample_count > 0
-    per_sample_mean = (token_nll * w).sum(dim=1) / per_sample_count.clamp_min(1.0)
-    n_with_mask = has_mask.float().sum()
-    total = torch.where(has_mask, per_sample_mean, 0.0).sum()
-    return torch.where(n_with_mask > 0, total / n_with_mask.clamp_min(1.0), 0.0)
+    return _average((token_nll * w).sum(dim=1), w.sum(dim=1))
+
+
+def chunk_size_for(L: int, chunk_size: int) -> int:
+    """The largest divisor of ``L`` not above ``chunk_size`` — never one
+    full-length chunk, which would make the [B, L, V] plane the chunking
+    exists to avoid (JAX masked_ce.py:88-95)."""
+    c = min(chunk_size, L)
+    while L % c:
+        c -= 1
+    return c
+
+
+def _logits(h, w_c, b_c):
+    """A chunk's logits [B·c, V] in the compute dtype (fp32 accumulation)
+    from its hidden states [B, c, H] or rows [B·c, H]. A chunk is copied
+    to contiguous rows first: cuBLAS ran the strided [B, c, H] slice
+    about 4.6 times slower on an H100 (PERF.md §6)."""
+    with record_function("lm_head.logits"):
+        return F.linear(h.reshape(-1, h.shape[-1]), w_c, b_c)
+
+
+def _log_softmax(logits):
+    """fp32 log-probabilities of compute-dtype logits (the cast inside
+    the softmax's own pass)."""
+    with record_function("lm_head.ce"):
+        return torch.log_softmax(logits, dim=-1, dtype=torch.float32)
+
+
+def _nll(logp, labels):
+    """The NLL [B, c] of a chunk's labels [B, c] from its log-probabilities
+    [B·c, V]."""
+    return -logp.gather(-1, labels.reshape(-1, 1).long()).view(labels.shape)
+
+
+def _chunk_stats(h, w_c, b_c, labels, valid):
+    """(Σ NLL over the chunk's valid positions, their count), per sample."""
+    nll = _nll(_log_softmax(_logits(h, w_c, b_c)), labels)
+    w = valid.float()
+    return (nll * w).sum(dim=1), w.sum(dim=1)
+
+
+def masked_lm_loss_chunked(hidden, weight, bias, labels, mask_positions, lengths=None,
+                           chunk_size: int = 64):
+    """Masked CE against a large-vocabulary head (``weight`` [V, H],
+    ``bias`` [V], fp32 masters) from ``hidden`` [B, L, H] in the compute
+    dtype, without the [B, L, V] logits: ``chunk_size`` positions of
+    every row a step. Under autograd each chunk is recomputed in the
+    backward (``torch.utils.checkpoint``, as JAX's ``jax.checkpoint``),
+    so no chunk's plane is kept; the head's gradient is summed over the
+    chunks in the compute dtype, as JAX's scan sums it."""
+    B, L, _ = hidden.shape
+    c = chunk_size_for(L, chunk_size)
+    valid = valid_positions(mask_positions, lengths, L)
+    w_c, b_c = weight.to(hidden.dtype), bias.to(hidden.dtype)
+    differentiated = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (hidden, weight, bias))
+    sums = torch.zeros(B, device=hidden.device)
+    counts = torch.zeros(B, device=hidden.device)
+    for s in range(0, L, c):
+        args = (hidden[:, s:s + c], w_c, b_c, labels[:, s:s + c], valid[:, s:s + c])
+        if differentiated:
+            ds, dc = checkpoint(_chunk_stats, *args, use_reentrant=False)
+        else:
+            ds, dc = _chunk_stats(*args)
+        sums = sums + ds
+        counts = counts + dc
+    return _average(sums, counts)
+
+
+def _mm_f32(a, b):
+    """``a @ b`` from compute-dtype operands with fp32 accumulation and an
+    fp32 result (JAX's ``preferred_element_type=float32``)."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()  # the products of bf16 values are exact in fp32
+
+
+def _fused_forward(hidden, weight, bias, labels, valid, w_pos, chunk_size: int):
+    """JAX's ``_fused_fwd_impl`` (:182-232): the loss and its gradients
+    in ``hidden``, ``weight`` and ``bias`` at a loss cotangent of 1, a
+    chunk at a time. Each chunk's logit cotangent is
+    ``w_pos · (softmax − onehot)``; ``dh`` is formed in the compute
+    dtype, ``dW`` and ``db`` summed over the chunks in fp32 (``db`` as the
+    product of the cotangent's fp32 rows with ``w_pos``)."""
+    B, L, H = hidden.shape
+    V = weight.shape[0]
+    cdt = hidden.dtype
+    w_c, b_c = weight.to(cdt), bias.to(cdt)
+    sums = torch.zeros(B, device=hidden.device)
+    dW = torch.zeros(V, H, device=hidden.device)
+    db = torch.zeros(V, device=hidden.device)
+    dh = []
+    for s in range(0, L, chunk_size):
+        h = hidden[:, s:s + chunk_size].reshape(-1, H)  # the chunk's rows, contiguous
+        lab = labels[:, s:s + chunk_size]
+        logp = _log_softmax(_logits(h, w_c, b_c))
+        with record_function("lm_head.ce"):
+            nll = _nll(logp, lab)
+            sums = sums + (nll * valid[:, s:s + chunk_size].float()).sum(dim=1)
+            dlogits = logp.exp_()  # the softmax, in logp's place
+            del logp
+            idx = lab.reshape(-1, 1).long()
+            dlogits.scatter_add_(-1, idx, torch.full_like(idx, -1.0, dtype=torch.float32))
+            w = w_pos[:, s:s + chunk_size].reshape(-1)
+            db += torch.mv(dlogits.T, w)
+            dl = torch.empty(dlogits.shape, dtype=cdt, device=hidden.device)
+            torch.mul(dlogits, w[:, None], out=dl)  # w·(softmax − onehot), rounded once
+            del dlogits
+        with record_function("lm_head.dh"):
+            dh.append((dl @ w_c).view(B, -1, H))
+        with record_function("lm_head.dW"):
+            dW += _mm_f32(dl.T, h)
+        del dl
+    return _average(sums, valid.float().sum(dim=1)), torch.cat(dh, dim=1), dW, db
+
+
+class _FusedLMLoss(torch.autograd.Function):
+    """The loss with its gradients formed in the forward; the backward
+    only scales them by the loss cotangent (JAX :235-262). Saves ``dh``
+    [B, L, H], ``dW`` and ``db``: nothing of size [B, chunk, V]."""
+
+    @staticmethod
+    def forward(ctx, hidden, weight, bias, labels, valid, w_pos, chunk_size):
+        loss, dh, dW, db = _fused_forward(hidden, weight, bias, labels, valid, w_pos,
+                                          chunk_size)
+        ctx.save_for_backward(dh, dW.to(weight.dtype), db.to(bias.dtype))
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        dh, dW, db = ctx.saved_tensors
+        return ((g.float() * dh.float()).to(dh.dtype), g.to(dW.dtype) * dW,
+                g.to(db.dtype) * db, None, None, None, None)
+
+
+def masked_lm_loss_fused(hidden, weight, bias, labels, mask_positions, lengths=None,
+                         chunk_size: int = 64):
+    """``masked_lm_loss_chunked`` with forward-computed gradients: one
+    fewer [rows, H]×[H, V] product under differentiation. The value is
+    the chunked path's bit for bit (the same chunks, the same per-sample
+    order); the gradients agree with its autograd to compute-dtype
+    rounding (here the products accumulate in fp32 and ``dW``, ``db`` are
+    summed in fp32, as in JAX's fused path). A call that nothing
+    differentiates is the chunked loss: no gradient work is done."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (hidden, weight, bias))):
+        return masked_lm_loss_chunked(hidden, weight, bias, labels, mask_positions, lengths,
+                                      chunk_size)
+    L = hidden.shape[1]
+    c = chunk_size_for(L, chunk_size)
+    valid = valid_positions(mask_positions, lengths, L)
+    counts = valid.sum(dim=1).float()
+    n_with_mask = (counts > 0).float().sum()
+    # per-position loss weight: d loss / d nll[b, l]
+    w_pos = valid.float() / (counts.clamp_min(1.0)[:, None] * n_with_mask.clamp_min(1.0))
+    return _FusedLMLoss.apply(hidden, weight, bias, labels, valid, w_pos, c)
+
+
+def gather_valid(hidden, labels, valid, capacity: int):
+    """Each row's first ``capacity`` positions after a stable sort that
+    puts its valid positions first, in order (JAX's
+    ``argsort(~valid, stable=True)``): (hidden, labels, valid) gathered
+    to [B, capacity]."""
+    with record_function("lm_head.gather"):
+        idx = torch.argsort((~valid).to(torch.uint8), dim=1, stable=True)[:, :capacity]
+        h = hidden.gather(1, idx[..., None].expand(-1, -1, hidden.shape[-1]))
+        return h, labels.gather(1, idx), valid.gather(1, idx)
+
+
+def fits_capacity(valid, capacity: int) -> bool:
+    """Whether every row's valid positions fit the gather: one read of
+    the largest count back to the host (the JAX package decides on the
+    device, with ``lax.cond``)."""
+    with record_function("lm_head.capacity_read"):
+        fits = int(valid.sum(dim=1).max()) <= capacity
+    (GATHERED if fits else FALLBACKS).add()
+    return fits
+
+
+def masked_lm_loss(hidden, weight, bias, labels, mask_positions, lengths=None,
+                   capacity: int = 192, chunk_size: int = 64, fused: bool = False):
+    """Large-vocabulary masked CE that projects only each row's valid
+    masked positions, gathered up to ``capacity`` of them (JAX
+    :268-326). If any row holds more, the exact full-length path runs
+    instead, so the value never depends on the capacity;
+    ``capacity <= 0`` or ``>= L`` always runs the full-length path.
+    ``fused`` swaps the chunked CE for :func:`masked_lm_loss_fused` on
+    both paths."""
+    L = hidden.shape[1]
+    inner = masked_lm_loss_fused if fused else masked_lm_loss_chunked
+    if capacity <= 0 or capacity >= L:
+        return inner(hidden, weight, bias, labels, mask_positions, lengths, chunk_size)
+    valid = valid_positions(mask_positions, lengths, L)
+    if not fits_capacity(valid, capacity):
+        return inner(hidden, weight, bias, labels, valid, None, chunk_size)
+    h, lab, val = gather_valid(hidden, labels, valid, capacity)
+    return inner(h, weight, bias, lab, val, None, min(chunk_size, capacity))
+
+
+@torch.no_grad()
+def masked_lm_metrics(hidden, weight, bias, labels, mask_positions, lengths=None,
+                      capacity: int = 192, chunk_size: int = 64):
+    """Eval-only (loss, argmax accuracy) of the large-vocabulary head in
+    one chunked pass, with :func:`masked_lm_loss`'s gather and averaging
+    (JAX :329-419): each chunk's logits feed both the CE and the argmax.
+    Accuracy is hits over valid masked positions; a batch without masks
+    gives (0.0, 0.0). Both fp32 scalar tensors."""
+    B, L, _ = hidden.shape
+    valid = valid_positions(mask_positions, lengths, L)
+    w_c, b_c = weight.to(hidden.dtype), bias.to(hidden.dtype)
+    h, lab, val = hidden, labels, valid
+    if 0 < capacity < L and fits_capacity(valid, capacity):
+        h, lab, val = gather_valid(hidden, labels, valid, capacity)
+    c = chunk_size_for(h.shape[1], chunk_size)
+    sums = torch.zeros(B, device=hidden.device)
+    counts = torch.zeros(B, device=hidden.device)
+    hits = torch.zeros((), device=hidden.device)
+    for s in range(0, h.shape[1], c):
+        logits = _logits(h[:, s:s + c], w_c, b_c)
+        lab_k, val_k = lab[:, s:s + c], val[:, s:s + c]
+        nll = _nll(_log_softmax(logits), lab_k)
+        w = val_k.float()
+        sums = sums + (nll * w).sum(dim=1)
+        counts = counts + w.sum(dim=1)
+        pred = logits.argmax(dim=-1).view(lab_k.shape)
+        hits = hits + ((pred == lab_k.long()) & val_k).sum().float()
+    acc = hits / valid.sum().clamp_min(1).float()
+    return _average(sums, counts), acc
 
 
 def masked_accuracy(logits, labels, mask_positions, lengths=None):

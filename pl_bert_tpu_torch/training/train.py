@@ -19,8 +19,10 @@ pretraining entry point with the reference's runtime contract
 One process, one card: the eager train step of ``train_step.py`` with
 the hand-written kernels; the host pipeline (host masking, or packed
 arrays for on-device masking) prefetched on a thread, which also starts
-the host-to-device copy. The mesh, ZeRO-1, multi-host initialisation,
-packed stores, remat and the multi-task head are not ported yet and raise
+the host-to-device copy. ``num_token_vocab > 0`` trains the multi-task
+model (the grapheme head, its token ids carried to the card and its
+``val_token_*`` metrics). The mesh, ZeRO-1, multi-host initialisation,
+packed stores and remat are not ported yet and raise
 (``train_step.check_ported``); ``prng_impl`` is read and ignored.
 
 Run: ``python -m pl_bert_tpu_torch.training.train --config_path
@@ -206,6 +208,63 @@ def load_training_dataset(name: str, split: str, token_vocab: int = 0):
     )
 
 
+def _check_token_vocab(max_tid: int, num_token_vocab: int) -> None:
+    if max_tid >= num_token_vocab:
+        raise ValueError(
+            f"dataset token_ids go up to {max_tid} but num_token_vocab is "
+            f"{num_token_vocab} — set model_params.num_token_vocab to at "
+            "least max(tokenizer vocab_size, word_separator + 1): separator "
+            "positions carry the word_separator id as their grapheme label "
+            "(reference: dataloader.py:67-68)"
+        )
+
+
+def _max_token_id(dataset) -> int:
+    """The largest grapheme label in a corpus of records; a record
+    without ``token_ids`` is refused."""
+    max_tid = -1
+    for i in range(len(dataset)):
+        ids = dataset[i].get("token_ids")
+        if not ids:
+            raise ValueError(
+                "multi-task training needs 'token_ids' in every dataset row, but row "
+                f"{i} has none — run the tokenize preprocessing stage (reference "
+                "expects this column at dataloader.py:40)"
+            )
+        max_tid = max(max_tid, max(ids))
+    return max_tid
+
+
+# the masked positions a sample holds at word_pred_prob p and length L
+# are about 0.75·p·L on average (58 at the defaults 0.15 and 512, with a
+# spread of 18); the largest of 8192 samples' counts measured there was
+# 135, 2.34 times the mean (pl_bert_tpu/config.py:163-175)
+CAPACITY_WARN_FACTOR = 2.4
+
+
+def lm_head_capacity_warning(tp, dp) -> str | None:
+    """The warning for an ``lm_head_capacity`` small enough that the
+    exact full-length fallback fires often, or None. The rule: a gather
+    capacity below 2.4 times the expected masked positions a sample
+    (0.75·word_pred_prob·max_seq_length) — above the largest count
+    measured in 8192 samples at the defaults, 135 — is warned of. At the
+    defaults that is 138.2, so it catches 128, the one capacity measured
+    slower (3.5% of batches of 96 fell back), and clears the default,
+    144. JAX's rule (1.5·word_pred_prob·L, 115 at the defaults) misses
+    128. 0 and capacities of at least L (no gather) are never warned of;
+    nothing is refused."""
+    capacity, L = tp.lm_head_capacity, dp.max_seq_length
+    expected = 0.75 * dp.word_pred_prob * L
+    if not 0 < capacity < L or capacity >= CAPACITY_WARN_FACTOR * expected:
+        return None
+    return (
+        f"WARNING: lm_head_capacity ({capacity}) is below {CAPACITY_WARN_FACTOR}x the "
+        f"expected masked tokens per sample (~{expected:.0f} at word_pred_prob "
+        f"{dp.word_pred_prob}, seq {L}); the exact full-length fallback will fire often "
+        "and slow the step — raise lm_head_capacity (or set 0 to disable the gather)."
+    )
+
+
 class Trainer:
     """Wires model, optimizer, data and checkpoints together on one device."""
 
@@ -216,7 +275,13 @@ class Trainer:
         resuming: bool,
         dataset=None,
         device: str = "cuda",
+        eval_only: bool = False,
     ):
+        """``eval_only``: the model, the data and the eval step, without
+        the AdamW state (twice the parameters in fp32) and the train step
+        that a scorer never touches (``training/evaluate.py``)."""
+        if eval_only and resuming:
+            raise ValueError("eval_only cannot resume a run (no opt state)")
         check_ported(config)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -226,6 +291,7 @@ class Trainer:
         self.config = config
         self.log_dir = log_dir
         self.resuming = resuming
+        self.eval_only = eval_only
         tp, mp, dp = (
             config.training_params,
             config.model_params,
@@ -235,9 +301,24 @@ class Trainer:
         self.model = init_params(build_model(mp, tp.mixed_precision), seed=tp.seed)
         self.model.to(self.device)
         self.tx = make_optimizer(tp)
+        self.use_token_ids = mp.num_token_vocab > 0
+        if self.use_token_ids and mp.num_token_vocab <= dp.word_separator:
+            # separator positions carry word_separator as their grapheme
+            # label (reference: dataloader.py:67-68); a head smaller than
+            # that id could not predict it
+            raise ValueError(
+                f"num_token_vocab ({mp.num_token_vocab}) must exceed "
+                f"dataset_params.word_separator ({dp.word_separator}): "
+                "separator positions use that id as their grapheme label "
+                "(reference: dataloader.py:67-68)"
+            )
+        warning = self.use_token_ids and lm_head_capacity_warning(tp, dp)
+        if warning:
+            print(warning, flush=True)
 
         if dataset is None:
-            dataset = load_training_dataset(tp.training_dataset, tp.split)
+            dataset = load_training_dataset(tp.training_dataset, tp.split,
+                                            token_vocab=mp.num_token_vocab)
         self.ondevice_masking = dp.ondevice_masking
         self.masking_params = None
         if dp.sequence_packing and not dp.ondevice_masking:
@@ -268,6 +349,14 @@ class Trainer:
             if not dp.sequence_packing:
                 kwargs["seed"] = tp.seed
             self.packed = packed_cls(dataset, dp.max_seq_length, **kwargs)
+            if self.use_token_ids:
+                if not self.packed.has_tokens:
+                    raise ValueError(
+                        "multi-task training with ondevice_masking needs 'token_ids' in "
+                        "every dataset row (per-word grapheme ids, reference: "
+                        "dataloader.py:40)"
+                    )
+                _check_token_vocab(int(self.packed.token_ids.max()), mp.num_token_vocab)
             if dp.sequence_packing:
                 print(
                     f"sequence packing: {len(dataset)} samples → "
@@ -300,10 +389,14 @@ class Trainer:
                     "word_separator": dp.word_separator,
                     "max_seq_length": dp.max_seq_length,
                 },
+                use_token_ids=self.use_token_ids,
                 seed=tp.seed,
             )
+            if self.use_token_ids:
+                _check_token_vocab(_max_token_id(dataset), mp.num_token_vocab)
 
-        self.state = TrainState(self.model, self.tx.init(self.model), 0)
+        opt_state = None if eval_only else self.tx.init(self.model)
+        self.state = TrainState(self.model, opt_state, 0)
         self.start_epoch = 0
         self.start_batch = 0
         self.current_step = 0
@@ -322,11 +415,13 @@ class Trainer:
             self.start_batch = meta["batch_in_epoch"]
             print(f"Checkpoint {path} loaded.")
 
-        self.train_step = make_train_step(
+        self.train_step = None if eval_only else make_train_step(
             self.model, self.tx, grad_accum=tp.grad_accum_steps, seed=tp.seed,
-            masking_params=self.masking_params,
+            masking_params=self.masking_params, fused_lm_head=tp.fused_lm_head,
+            lm_head_capacity=tp.lm_head_capacity,
         )
-        self.eval_step = make_eval_step(self.model, masking_params=self.masking_params)
+        self.eval_step = make_eval_step(self.model, masking_params=self.masking_params,
+                                        lm_head_capacity=tp.lm_head_capacity)
         self.ckpt_writer = AsyncCheckpointWriter() if tp.async_save else None
         self.metrics = MetricsLogger(
             log_dir, tp.log_interval, tp.wandb_project, config.to_dict()
@@ -336,13 +431,13 @@ class Trainer:
         self.profiler = maybe_profile()
 
     def _put(self, batch) -> dict:
-        """The batch's arrays on the device (a corpus's grapheme
-        ``token_ids`` stay behind: the multi-task head is not ported);
-        called inside the prefetch thread, so the copy overlaps the
-        previous step."""
+        """The batch's arrays on the device (the grapheme ``token_ids``
+        only for the multi-task model); called inside the prefetch
+        thread, so the copy overlaps the previous step."""
         arrays = batch if isinstance(batch, dict) else batch_to_arrays(batch)
         return to_device(
-            {k: v for k, v in arrays.items() if k != "token_ids"}, self.device
+            {k: v for k, v in arrays.items() if k != "token_ids" or self.use_token_ids},
+            self.device,
         )
 
     @staticmethod
@@ -399,6 +494,8 @@ class Trainer:
     def validate(self) -> tuple[float, float] | None:
         """→ (mean val phoneme loss, mean masked accuracy) or None on an
         empty split; also records the batch count in _last_val_batches.
+        For the multi-task model the grapheme head's means land in
+        ``last_val_extras`` ({val_token_loss, val_token_accuracy}).
 
         The mean is UNWEIGHTED over per-batch means — deliberately the
         reference's exact validation statistic (reference:
@@ -411,6 +508,7 @@ class Trainer:
         vacuous 0.0 for it (which would dilute the mean toward zero)
         and the reference's torch CE returns NaN (which poisons it)."""
         losses, accs = [], []
+        t_losses, t_accs = [], []
         tp = self.config.training_params
         for i, batch in enumerate(self._val_batches()):
             arrays = batch if isinstance(batch, dict) else batch_to_arrays(batch)
@@ -418,15 +516,21 @@ class Trainer:
             # a fixed masking seed per batch index: validation masking
             # patterns are independent across batches and the same
             # across runs
-            loss, acc, n_masked = self.eval_step(
-                self._put(arrays), (tp.seed + 1) * 2**32 + i
-            )
+            out = self.eval_step(self._put(arrays), (tp.seed + 1) * 2**32 + i)
+            loss, acc, n_masked = out[:3]
             if int(n_masked) == 0:
                 continue
             losses.append(float(loss))
             accs.append(float(acc))
+            if len(out) == 5:  # multi-task: the grapheme head's metrics too
+                t_losses.append(float(out[3]))
+                t_accs.append(float(out[4]))
         self._last_val_batches = len(losses)
-        self.last_val_extras = None  # the multi-task head's metrics: not ported yet
+        self.last_val_extras = (
+            {"val_token_loss": float(np.mean(t_losses)),
+             "val_token_accuracy": float(np.mean(t_accs))}
+            if t_losses else None
+        )
         if not losses:
             return None
         return float(np.mean(losses)), float(np.mean(accs))
@@ -495,7 +599,8 @@ class Trainer:
                 flush=True,
             )
         else:
-            self.metrics.log_validation(self.current_step, self.start_epoch, *val)
+            self.metrics.log_validation(self.current_step, self.start_epoch, *val,
+                                        extras=self.last_val_extras)
 
         # resume CONTINUES the checkpointed epoch from its saved batch
         # position; a fresh run starts at epoch 1, batch 0
@@ -534,7 +639,8 @@ class Trainer:
                 if self.current_step % val_every == 0:
                     val = self.validate()
                     if val is not None:
-                        self.metrics.log_validation(self.current_step, epoch, *val)
+                        self.metrics.log_validation(self.current_step, epoch, *val,
+                                                    extras=self.last_val_extras)
                 if self.current_step >= tp.num_steps:
                     if self.current_step % tp.save_interval != 0:
                         # final-step checkpoint (improvement over the

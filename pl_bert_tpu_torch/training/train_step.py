@@ -1,4 +1,4 @@
-"""Train and eval steps of the phoneme-only model, in PyTorch.
+"""Train and eval steps of the phoneme-only and the multi-task model, in PyTorch.
 
 The counterpart of ``pl_bert_tpu/training/train_step.py`` (:39-97
 ``_decay_mask``, ``make_lr_schedule``, ``make_optimizer``; :175-321
@@ -13,6 +13,12 @@ The counterpart of ``pl_bert_tpu/training/train_step.py`` (:39-97
 - gradient accumulation over a leading micro-batch axis, each
   micro-batch's loss weighted by its samples with masks, so the update
   equals the concatenated batch's;
+- the multi-task model's grapheme head (:class:`MultiTaskModel`): the
+  phoneme loss plus ``masked_lm_loss`` on the hidden states, gathered up
+  to ``lm_head_capacity`` masked positions a row (one host read a
+  micro-batch decides whether they fit; if not, the exact full-length
+  path runs) and, with ``fused_lm_head``, with forward-computed
+  gradients (:100-150);
 - metrics ``loss``, ``phoneme_loss``, ``token_loss`` (0: phoneme-only),
   ``grad_norm`` (the averaged gradient's norm before clipping) and ``lr``.
 
@@ -31,8 +37,8 @@ layer application, as host ints, so a step is reproducible, reading a
 seed never syncs the device, and one seed list drives every attention
 path.
 
-Not ported yet — each raises where asked for: the multi-task grapheme
-head, ``remat`` and a packed store directory (see :func:`check_ported`).
+Not ported yet — each raises where asked for: ``remat``, a packed store
+directory and more than one device (see :func:`check_ported`).
 """
 
 from __future__ import annotations
@@ -45,9 +51,11 @@ from typing import Callable
 import torch
 
 from pl_bert_tpu_torch.data.pipeline import to_device
-from pl_bert_tpu_torch.models.albert import draw_dropout_seeds
+from pl_bert_tpu_torch.models.albert import MultiTaskModel, draw_dropout_seeds
 from pl_bert_tpu_torch.ops.masked_ce import (
     masked_accuracy,
+    masked_lm_loss,
+    masked_lm_metrics,
     masked_phoneme_loss,
     samples_with_masks,
 )
@@ -56,10 +64,7 @@ from pl_bert_tpu_torch.ops.masked_ce import (
 def check_ported(config) -> None:
     """Raise ``NotImplementedError`` for a config whose training path is
     not ported yet."""
-    tp, mp = config.training_params, config.model_params
-    if mp.num_token_vocab > 0:
-        raise NotImplementedError(
-            "model_params.num_token_vocab > 0 is not yet ported to pl_bert_tpu_torch")
+    tp = config.training_params
     name = tp.training_dataset
     if os.path.isdir(name) and os.path.exists(os.path.join(name, "packed_meta.json")):
         raise NotImplementedError(
@@ -182,19 +187,38 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum((t * t).sum() for t in tensors))
 
 
-def _forward_loss(model, mb: dict, deterministic: bool, dropout_seeds=None):
-    """(fp32 logits, phoneme loss) of one (micro-)batch; a packed batch's
+def _forward(model, mb: dict, deterministic: bool, dropout_seeds=None):
+    """(fp32 phoneme logits, the multi-task model's hidden states or
+    None) of one (micro-)batch; a packed batch's
     ``segment_ids``/``position_ids`` go to the model."""
     ids, lengths = mb["masked_ids"], mb["lengths"]
     L = ids.shape[1]
     attention_mask = (torch.arange(L, device=ids.device)[None, :] < lengths[:, None]).int()
     position_ids = mb.get("position_ids")
-    logits = model(
-        ids.long(), attention_mask, segment_ids=mb.get("segment_ids"),
-        position_ids=None if position_ids is None else position_ids.long(),
-        deterministic=deterministic, dropout_seeds=dropout_seeds,
+    kwargs = dict(segment_ids=mb.get("segment_ids"),
+                  position_ids=None if position_ids is None else position_ids.long(),
+                  deterministic=deterministic, dropout_seeds=dropout_seeds)
+    if isinstance(model, MultiTaskModel):
+        return model(ids.long(), attention_mask, project_tokens=False, **kwargs)
+    return model(ids.long(), attention_mask, **kwargs), None
+
+
+def _forward_loss(model, mb: dict, deterministic: bool, dropout_seeds=None,
+                  lm_head_capacity: int = 144, fused_lm_head: bool = False):
+    """(fp32 phoneme logits, phoneme loss, token loss) of one
+    (micro-)batch; the token loss is 0 for the phoneme-only model. The
+    multi-task model's grapheme head never makes its [B, L, V] logits:
+    ``masked_lm_loss`` projects the hidden states chunk by chunk."""
+    logits, hidden = _forward(model, mb, deterministic, dropout_seeds)
+    loss_p = masked_phoneme_loss(logits, mb["label_ids"], mb["mask_positions"], mb["lengths"])
+    if hidden is None:
+        return logits, loss_p, torch.zeros((), device=logits.device)
+    head = model.token_predictor
+    loss_t = masked_lm_loss(
+        hidden, head.weight, head.bias, mb["token_ids"], mb["mask_positions"], mb["lengths"],
+        capacity=lm_head_capacity, fused=fused_lm_head,
     )
-    return logits, masked_phoneme_loss(logits, mb["label_ids"], mb["mask_positions"], lengths)
+    return logits, loss_p, loss_t
 
 
 def _apply_ondevice_masking(batch: dict, mask_seed: int, masking_params) -> dict:
@@ -210,6 +234,7 @@ def _apply_ondevice_masking(batch: dict, mask_seed: int, masking_params) -> dict
     fwd = {
         "masked_ids": masked_ids,
         "label_ids": batch["label_ids"],
+        "token_ids": batch.get("token_ids", batch["label_ids"]),
         "mask_positions": mask_positions,
         "lengths": batch["lengths"],
     }
@@ -230,16 +255,22 @@ def _check_batch(batch: dict, masking_params) -> None:
 
 
 def make_train_step(model, tx: AdamW, grad_accum: int = 1, seed: int = 1,
-                    masking_params=None):
+                    masking_params=None, fused_lm_head: bool = False,
+                    lm_head_capacity: int = 144):
     """The step ``(state, batch) → (state, metrics)``. ``batch``: the
     arrays of ``data/collate.py``'s ``Batch`` (``masked_ids``,
-    ``label_ids``, ``mask_positions``, ``lengths``), numpy or torch, with a
-    leading ``[grad_accum]`` axis when ``grad_accum > 1``. With
-    ``masking_params`` the batch is a packed one (``label_ids``,
-    ``word_ids``, ``lengths`` [+ ``segment_ids``, ``position_ids``]) and
-    the masking runs on the device inside the step. Metrics are 0-dim
-    tensors on the model's device, except ``lr``, a float."""
+    ``label_ids``, ``mask_positions``, ``lengths``; ``token_ids`` for the
+    multi-task model), numpy or torch, with a leading ``[grad_accum]``
+    axis when ``grad_accum > 1``. With ``masking_params`` the batch is a
+    packed one (``label_ids``, ``word_ids``, ``lengths`` [+
+    ``token_ids``, ``segment_ids``, ``position_ids``]) and the masking
+    runs on the device inside the step. ``fused_lm_head`` and
+    ``lm_head_capacity`` set the multi-task model's grapheme-head loss
+    (:func:`masked_lm_loss`); the phoneme-only model ignores them.
+    Metrics are 0-dim tensors on the model's device, except ``lr``, a
+    float."""
     n_layers = model.cfg.num_hidden_layers
+    head = dict(lm_head_capacity=lm_head_capacity, fused_lm_head=fused_lm_head)
 
     def masked(mb: dict, gen: torch.Generator) -> dict:
         if masking_params is None:
@@ -255,31 +286,33 @@ def make_train_step(model, tx: AdamW, grad_accum: int = 1, seed: int = 1,
         state.model.zero_grad(set_to_none=True)
         if grad_accum == 1:
             batch = masked(batch, gen)
-            _, loss = _forward_loss(state.model, batch, False,
-                                    draw_dropout_seeds(gen, n_layers))
-            loss.backward()
+            _, loss_p, loss_t = _forward_loss(state.model, batch, False,
+                                              draw_dropout_seeds(gen, n_layers), **head)
+            (loss_p + loss_t).backward()
             grads = {n: p.grad for n, p in state.model.named_parameters()
                      if p.grad is not None}
-            loss_p = loss.detach()
+            loss_p, loss_t = loss_p.detach(), loss_t.detach()
         else:
-            p_sum = torch.zeros((), device=device)
-            n_sum = torch.zeros((), device=device)
+            # each micro-batch's losses weighted by its samples with masks,
+            # summed, and divided once by the total count (JAX :231-288)
+            p_sum, t_sum, n_sum = (torch.zeros((), device=device) for _ in range(3))
             for i in range(grad_accum):
                 mb = masked({k: v[i] for k, v in batch.items()}, gen)
                 n = samples_with_masks(mb["mask_positions"], mb["lengths"])
-                _, loss = _forward_loss(state.model, mb, False,
-                                        draw_dropout_seeds(gen, n_layers))
-                (loss * n).backward()
-                p_sum += loss.detach() * n
+                _, loss_p, loss_t = _forward_loss(state.model, mb, False,
+                                                  draw_dropout_seeds(gen, n_layers), **head)
+                ((loss_p + loss_t) * n).backward()
+                p_sum += loss_p.detach() * n
+                t_sum += loss_t.detach() * n
                 n_sum += n
             denom = n_sum.clamp_min(1.0)
             grads = {n: p.grad / denom for n, p in state.model.named_parameters()
                      if p.grad is not None}
-            loss_p = p_sum / denom
+            loss_p, loss_t = p_sum / denom, t_sum / denom
         metrics = {
-            "loss": loss_p,
+            "loss": loss_p + loss_t,
             "phoneme_loss": loss_p,
-            "token_loss": torch.zeros((), device=device),
+            "token_loss": loss_t,
             "grad_norm": global_norm(grads.values()),
             "lr": tx.lr(state.opt_state.count),
         }
@@ -296,19 +329,22 @@ def batch_to_arrays(batch) -> dict:
     return {
         "masked_ids": batch.masked_ids,
         "label_ids": batch.label_ids,
+        "token_ids": batch.token_ids,
         "mask_positions": batch.mask_positions,
         "lengths": batch.lengths,
     }
 
 
-def make_eval_step(model, masking_params=None):
+def make_eval_step(model, masking_params=None, lm_head_capacity: int = 144):
     """The eval step ``(batch, mask_seed) → (phoneme_loss, masked
-    accuracy, n_masked)``: the deterministic forward (the serving
-    kernels), no gradients. With ``masking_params`` the masking runs on
-    the device from ``mask_seed`` (pass a fixed one per batch so
-    validation is the same across runs). ``n_masked`` lets the caller
-    leave batches without masks out of a validation mean, as the JAX
-    trainer does."""
+    accuracy, n_masked)``, and for the multi-task model ``(…, token_loss,
+    token accuracy)`` from ``masked_lm_metrics`` at ``lm_head_capacity``
+    (JAX :324-368 uses 192 whatever the config says; the values do not
+    depend on it): the deterministic forward (the serving kernels), no
+    gradients. With ``masking_params`` the masking runs on the device
+    from ``mask_seed`` (pass a fixed one per batch so validation is the
+    same across runs). ``n_masked`` lets the caller leave batches without
+    masks out of a validation mean, as the JAX trainer does."""
 
     @torch.no_grad()
     def step(batch: dict, mask_seed: int = 0):
@@ -316,9 +352,16 @@ def make_eval_step(model, masking_params=None):
         batch = to_device(batch, next(model.parameters()).device)
         if masking_params is not None:
             batch = _apply_ondevice_masking(batch, mask_seed, masking_params)
-        logits, loss_p = _forward_loss(model, batch, True)
-        acc = masked_accuracy(logits, batch["label_ids"], batch["mask_positions"],
-                              batch["lengths"])
-        return loss_p, acc, batch["mask_positions"].long().sum()
+        logits, hidden = _forward(model, batch, True)
+        mask, lengths = batch["mask_positions"], batch["lengths"]
+        loss_p = masked_phoneme_loss(logits, batch["label_ids"], mask, lengths)
+        acc = masked_accuracy(logits, batch["label_ids"], mask, lengths)
+        n_masked = mask.long().sum()
+        if hidden is None:
+            return loss_p, acc, n_masked
+        head = model.token_predictor
+        loss_t, acc_t = masked_lm_metrics(hidden, head.weight, head.bias, batch["token_ids"],
+                                          mask, lengths, capacity=lm_head_capacity)
+        return loss_p, acc, n_masked, loss_t, acc_t
 
     return step

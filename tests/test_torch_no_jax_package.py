@@ -2,7 +2,8 @@
 ``flax``, ``orbax`` or the JAX package ``pl_bert_tpu`` raises, every
 module of ``pl_bert_tpu_torch`` and every module ``chip_smoke.py``
 imports load, the port's HTTP server builds on the CPU and answers a
-request, and the port's Trainer runs a packed run and resumes it."""
+request, the port's Trainer runs a packed run and resumes it, and a
+multi-task run trains and ``training/evaluate.py`` scores it."""
 
 import ast
 import subprocess
@@ -62,7 +63,7 @@ def test_every_port_module_and_smoke_import_loads_without_the_jax_package(tmp_pa
     assert "pl_bert_tpu_torch.training.train_step" in mods
     for new in ("ops.flash_attention", "ops.ondevice_masking", "data.packed", "data.pipeline",
                 "training.checkpoint", "training.metrics", "training.train", "utils.profiler",
-                "tools.bench_fused_ln"):
+                "tools.bench_fused_ln", "training.evaluate", "ops.masked_ce"):
         assert f"pl_bert_tpu_torch.{new}" in mods, new
     assert "pl_bert_tpu_torch.training.train" in smoke
     assert "pl_bert_tpu_torch.tools" in smoke or "pl_bert_tpu_torch.tools.bench_fused_ln" in smoke
@@ -150,3 +151,34 @@ assert not bad, bad
 print("trained")
 '''
     assert _run(code, tmp_path).split()[-1] == "trained"
+
+
+def test_port_multitask_trainer_and_evaluate_without_the_jax_package(tmp_path):
+    code = f'''
+import json, yaml
+from pl_bert_tpu_torch.training.evaluate import evaluate
+from pl_bert_tpu_torch.training.train import train
+
+cfg = {str(tmp_path / "cfg.yml")!r}
+raw = {{
+    "training_params": dict(output_dir={str(tmp_path / "runs")!r}, mixed_precision="fp32",
+                            batch_size=4, save_interval=2, log_interval=1, num_steps=2,
+                            training_dataset="synthetic:80:0:3-12", grad_accum_steps=2,
+                            lm_head_capacity=8),
+    "dataset_params": dict(max_seq_length=64, ondevice_masking=True, sequence_packing=True),
+    "model_params": dict(hidden_size=128, num_attention_heads=2, intermediate_size=256,
+                         max_position_embeddings=64, num_hidden_layers=2, embedding_size=32,
+                         num_token_vocab=100),
+}}
+with open(cfg, "w") as f:
+    yaml.safe_dump(raw, f)
+assert train({{"config_path": cfg, "run_name": "mt", "device": "cpu"}}) == 2
+out = evaluate({{"checkpoint": {str(tmp_path / "runs" / "mt")!r}, "config_path": cfg,
+                 "device": "cpu"}})
+assert out["val_token_loss"] > 0, out
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "flax", "orbax", "pl_bert_tpu"))
+assert not bad, bad
+print("evaluated")
+'''
+    assert _run(code, tmp_path).split()[-1] == "evaluated"

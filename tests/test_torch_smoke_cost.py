@@ -174,3 +174,15 @@ def test_ln_label_names_the_fused_ln_kernels(mangled, label):
     """Phase 2 reads K5's and K6's registers and SASS by these labels
     (mangled names as ptxas and cuobjdump print them on the card)."""
     assert smoke.ln_label(mangled) == label
+
+
+def test_head_cost_at_the_production_shape():
+    """The grapheme head at bench.py's production shape: 96 rows of 144
+    gathered positions, hidden 768, a head of 60,000. Three products of
+    2·13824·768·60000 = 1.27 TFLOP each; 3.87 ms at 989 TFLOP/s beats its
+    0.4 GB of operands and gradients at 3.35 TB/s."""
+    flops, nbytes = smoke.head_cost(96, 512, 144, 768, 60_000)
+    assert flops == 3 * 2 * 13824 * 768 * 60000 == pytest.approx(3.822e12, rel=1e-3)
+    assert nbytes == 2 * 13824 * 768 * 2 + 2 * (60000 * 768 + 60000) * 4 + 96 * 512 * 5
+    ms, by = smoke.bound_ms(flops, nbytes)
+    assert by == "operations" and ms == pytest.approx(3.8646, rel=1e-3)

@@ -157,7 +157,7 @@ def test_dropout_seeded_and_every_parameter_learns(batches, jax_params):
         gen = torch.Generator().manual_seed(seed)
         seeds = draw_dropout_seeds(gen, MP.num_hidden_layers)
         assert len(seeds) == 1 + 3 * MP.num_hidden_layers
-        _, loss = ts._forward_loss(model, batch, False, seeds)
+        _, loss, _ = ts._forward_loss(model, batch, False, seeds)
         return loss
 
     model.zero_grad(set_to_none=True)
@@ -190,24 +190,21 @@ def test_dropout_steps_reproducible_and_pooler_not_decayed(batches, jax_params):
 
 @pytest.mark.parametrize("section,key", [
     ("training_params", "training_dataset"), ("training_params", "model_axis"),
-    ("model_params", "num_token_vocab"), ("training_params", "remat"),
+    ("training_params", "remat"),
 ])
 def test_not_yet_ported_raises(section, key, tmp_path):
-    """What still waits raises: the multi-task head, a packed store
-    directory, more than one device, remat (accepted and ignored would
-    keep the values but not the peak memory JAX's ``nn.remat`` gives).
-    On-device masking and sequence packing are ported and pass."""
+    """What still waits raises: a packed store directory, more than one
+    device, remat (accepted and ignored would keep the values but not the
+    peak memory JAX's ``nn.remat`` gives). On-device masking, sequence
+    packing and the multi-task head are ported and pass."""
     (tmp_path / "packed_meta.json").write_text("{}")
-    value = {"training_dataset": str(tmp_path), "model_axis": 2, "num_token_vocab": 8,
-             "remat": True}[key]
+    value = {"training_dataset": str(tmp_path), "model_axis": 2, "remat": True}[key]
     cfg = Config.from_dict({section: {key: value}})
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ts.check_ported(cfg)
-    if key == "num_token_vocab":
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            build_model(cfg.model_params)
     ts.check_ported(Config.from_dict(
-        {"dataset_params": {"ondevice_masking": True, "sequence_packing": True}}))
+        {"dataset_params": {"ondevice_masking": True, "sequence_packing": True},
+         "model_params": {"num_token_vocab": 8}}))
 
 
 def test_step_refuses_packed_batches(batches, jax_params):
