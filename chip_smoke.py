@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path, its training step, its Trainer
-entry point and its multi-task pretraining run once on one CUDA card.
+entry point and its multi-task pretraining run (from memory, then from a
+packed store under restart supervision) once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -132,7 +133,33 @@ with random weights made from a fixed seed, in order:
       the launch counters (the ``multitask`` path of the kernels line);
       then ``training/evaluate.py`` on its ``step_6.pth`` (the run's own
       validation numbers) and ``training/profile.py --multitask`` (the
-      step by group, the head by part, the capacity read's cost).
+      step by group, the head by part, the capacity read's cost);
+19. the production run from a packed store (the data plane at scale):
+   a. writes 18 c's corpus as a ``records.jsonl`` dataset and packs it with
+      ``python -m pl_bert_tpu_torch.preprocess.pipeline --stage pack`` in
+      a subprocess (one shard of ``packed_rows`` with tokens); the stage's
+      route counter must show the native packer; the store's batches (train
+      epochs 0 and 1, the validation snapshot) must equal, bit for bit,
+      those of the in-RAM ``PackedSequenceDataset`` 18 c trained from;
+   b. ``python -m pl_bert_tpu_torch.data.verify_store`` passes the store
+      and fails a copy with one shard file cut short;
+   c. ``training.train.train()`` on the store, 6 steps of 18 c's
+      configuration: its launch counters must equal 18 c's and its losses
+      18 c's within phase 13's loss gate (it prints whether bitwise);
+   d. ``python -m pl_bert_tpu_torch.training.orchestrate --max_restarts 2
+      --restart_delay 0`` on the store with ``save_interval`` 3 and
+      ``PLBERT_CRASH_AT_STEP=4``: the first child exits 17 after
+      ``step_3.pth``, the second resumes and ends at ``step_6.pth``, the
+      launcher exits 0 with a restart count of 1, steps 1-6 match c's
+      losses under the same gate, and ``step_6.pth`` loads strictly into a
+      fresh ``MultiTaskModel``;
+   e. bench.py's store feed (``run_store_feed``) on the port: 50,000
+      samples of 40-120 words packed as rows, 400 shuffled batches of
+      96 × 512 after a 20-batch warm-up; prints the store's bytes, its open
+      time, rows/s and tokens/s and the VmRSS growth over the read pass,
+      and fails unless the feed meets the production step's demand (2 × 96
+      rows at 18 c's ms a step) and the growth stays under a quarter of the
+      store's bytes. Nothing of it imports ``datasets`` or ``transformers``.
 
 Any failure raises and exits non-zero. The line before the last is a
 JSON record of the kernels; the last line is
@@ -148,6 +175,7 @@ import http.client
 import io
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -264,7 +292,9 @@ HEAD_GRAD_TOL = {"rel_l2": 1e-2, "max_abs_rel": 5e-2}
 # losses summed per sample in another order (fp32)
 GATHER_TOL = 1e-5
 # the production run (phase 18 c): bench.py::run_production's
-# configuration at the flagship width; {out} and {steps} are filled in
+# configuration at the flagship width; {out}, {steps}, {save} and
+# {dataset} are filled in (phase 19 trains on the packed store of the
+# corpus that 18 c's spec makes)
 MT_CONFIG = """\
 training_params:
   output_dir: {out}
@@ -273,11 +303,11 @@ training_params:
   grad_accum_steps: 2
   fused_lm_head: true
   lm_head_capacity: 144
-  save_interval: {steps}
+  save_interval: {save}
   log_interval: 1
   num_steps: {steps}
   learning_rate: 7.0e-5
-  training_dataset: "synthetic:6000:0:8-30"
+  training_dataset: "{dataset}"
 dataset_params:
   max_seq_length: 512
   ondevice_masking: true
@@ -293,6 +323,9 @@ model_params:
   num_token_vocab: 60000
 """
 MT_STEPS = 6
+MT_DATASET = "synthetic:6000:0:8-30"
+# the store feed (phase 19 e): bench.py::run_store_feed's own settings
+FEED_SAMPLES, FEED_BATCHES, FEED_WARMUP = 50_000, 400, 20
 MAX_BATCH = 8
 N_CLIENTS, PER_CLIENT = 4, 8
 
@@ -2064,7 +2097,8 @@ def phase_production_run(torch, workdir: str) -> tuple[dict, dict]:
     config_path = os.path.join(workdir, "production.yml")
     run_dir = os.path.join(out_dir, "production")
     with open(config_path, "w", encoding="utf-8") as f:
-        f.write(MT_CONFIG.format(out=out_dir, steps=MT_STEPS))
+        f.write(MT_CONFIG.format(out=out_dir, steps=MT_STEPS, save=MT_STEPS,
+                                 dataset=MT_DATASET))
     config = Config.load(config_path)
     tp, mp = config.training_params, config.model_params
     # the training_dataset spec's corpus (bench.py's short samples with
@@ -2146,7 +2180,7 @@ def phase_production_run(torch, workdir: str) -> tuple[dict, dict]:
     profile.main(["--multitask", "--steps", "3", "--top", "12"])
     run = {"step_ms": 1e3 / sps, "tokens_per_s": positions * occupancy,
            "occupancy": occupancy, "peak_bytes": peak, "gathered": decided[0],
-           "fallbacks": decided[1]}
+           "fallbacks": decided[1], "steps": steps}
     return run, launches
 
 
@@ -2164,6 +2198,276 @@ def phase_microbench(torch) -> dict:
     if launches["add_copy"] != expect:
         raise AssertionError(f"add_copy launched {launches['add_copy']} times, not {expect}")
     return launches
+
+
+def vm_rss() -> int:
+    """This process's resident set in bytes (``VmRSS`` of /proc/self/status)."""
+    with open("/proc/self/status", encoding="ascii") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+def run_module(args: list[str], env: dict | None = None,
+               timeout: float = 900) -> subprocess.CompletedProcess:
+    """``python -m <args>`` from this checkout in a session of its own,
+    output captured; the whole session is killed if it outlives
+    ``timeout`` or this call is interrupted, so no child outlives it."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", *args], cwd=HERE, env={**os.environ, **(env or {})},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, start_new_session=True,
+    )
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except BaseException:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+
+def hold_losses(got: list[dict], want: list[dict], label: str) -> bool:
+    """Hold a run's per-step losses (metrics.jsonl records) to another
+    run's under the train step's loss gate; True when every one is
+    bitwise."""
+    if [r["step"] for r in got] != [r["step"] for r in want]:
+        raise AssertionError(f"{label}: steps {[r['step'] for r in got]}")
+    worst, differ = 0.0, []
+    for g, w in zip(got, want):
+        for k in ("loss", "phoneme_loss", "token_loss"):
+            worst = max(worst, abs(g[k] - w[k]) / max(abs(w[k]), 1e-12))
+            if g[k] != w[k]:
+                differ.append(f"step {g['step']} {k} {g[k]!r} vs {w[k]!r}")
+    bitwise = not differ
+    log(f"  {label}: losses {[round(r['loss'], 4) for r in got]}; largest relative "
+        f"difference {worst:.2e} (gate {TRAIN_TOL['loss']:.0e}); bitwise equal: {bitwise}"
+        + (f"; the first that differs: {differ[0]} ({len(differ)} of {3 * len(got)} differ)"
+           if differ else ""))
+    if worst > TRAIN_TOL["loss"]:
+        raise AssertionError(f"{label}: losses off by {worst:.2e}")
+    return bitwise
+
+
+def step_records(run_dir: str) -> list[dict]:
+    with open(os.path.join(run_dir, "metrics.jsonl"), encoding="utf-8") as f:
+        return [r for r in map(json.loads, f) if "loss" in r]
+
+
+def phase_store_run(torch, workdir: str, production: dict, mt_launches: dict) -> dict:
+    """19 a-d. 18 c's corpus through the pack CLI, ``verify_store``, a
+    Trainer run from the store and the elastic launcher."""
+    import contextlib
+    import itertools
+    import shutil
+
+    import numpy as np
+
+    from pl_bert_tpu_torch.config import Config
+    from pl_bert_tpu_torch.data.packed import PackedSequenceDataset
+    from pl_bert_tpu_torch.data.packed_store import open_packed_store
+    from pl_bert_tpu_torch.data.pipeline import split_train_val
+    from pl_bert_tpu_torch.models.albert import MultiTaskModel, build_model
+    from pl_bert_tpu_torch.preprocess.shard_engine import combine_and_save
+    from pl_bert_tpu_torch.training.train import load_training_dataset, train
+
+    out_dir = os.path.join(workdir, "runs")
+    src = os.path.join(workdir, "production")
+    store = src + ".packed"
+
+    def write_config(name: str, save: int, dataset: str) -> str:
+        path = os.path.join(workdir, name)
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(MT_CONFIG.format(out=out_dir, steps=MT_STEPS, save=save, dataset=dataset))
+        return path
+
+    pack_config = write_config("pack.yml", MT_STEPS, MT_DATASET)
+    config = Config.load(pack_config)
+    tp, mp, dp = config.training_params, config.model_params, config.dataset_params
+    corpus = load_training_dataset(MT_DATASET, tp.split, token_vocab=mp.num_token_vocab)
+    combine_and_save([corpus], src)
+    log(f"phase 19 a: 18 c's corpus ({len(corpus)} records.jsonl samples) through the pack "
+        "CLI in a subprocess, one shard of packed_rows with tokens")
+    t0 = time.perf_counter()
+    packed = run_module(["pl_bert_tpu_torch.preprocess.pipeline", "--stage", "pack",
+                         "--dataset_path", src, "--config_path", pack_config])
+    pack_s = time.perf_counter() - t0
+    if packed.returncode:
+        raise AssertionError(f"the pack stage exited {packed.returncode}:\n{packed.stderr[-3000:]}")
+    routes = [line for line in packed.stdout.splitlines() if line.startswith("pack_batch calls:")]
+    log(f"  {routes}, the subprocess took {pack_s:.1f} s")
+    calls = dict(part.split() for part in routes[0].split(": ", 1)[1].split(", ")) if len(
+        routes) == 1 else {}
+    if int(calls.get("native", 0)) < 1 or int(calls.get("numpy", 1)) != 0:
+        raise AssertionError(f"the native packer did not pack the store: {packed.stdout[-2000:]}")
+    reader = open_packed_store(store)
+    meta = reader.meta
+    if (meta["kind"], len(meta["shards"]), meta["has_tokens"], meta["num_samples"]) != (
+            "packed_rows", 1, True, len(corpus)):
+        raise AssertionError(f"store meta: {meta}")
+    ram = PackedSequenceDataset(corpus, dp.max_seq_length, token_separator=dp.word_separator)
+    if len(ram) != len(reader):
+        raise AssertionError(f"store rows {len(reader)} != 18 c's {len(ram)}")
+    train_idx, val_idx = split_train_val(len(ram), seed=tp.seed)
+    streams = {f"train epoch {e}": dict(epoch=e, seed=tp.seed, indices=train_idx)
+               for e in (0, 1)}
+    streams["validation snapshot"] = dict(epoch=0, shuffle=False, drop_last=False,
+                                          indices=val_idx)
+    compared = 0
+    for name, kw in streams.items():
+        pairs = itertools.zip_longest(reader.batches(tp.batch_size, **kw),
+                                      ram.batches(tp.batch_size, **kw))
+        for i, (a, b) in enumerate(pairs):
+            if a is None or b is None or set(a) != set(b) or any(
+                    a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]) for k in b):
+                raise AssertionError(f"the store's {name} batch {i} is not 18 c's")
+            compared += 1
+    log(f"  store: {meta['num_rows']} rows, {meta['total_tokens']} tokens; its {compared} "
+        f"batches of train epochs 0 and 1 and the validation snapshot equal the in-RAM "
+        "PackedSequenceDataset's bit for bit")
+
+    log("phase 19 b: python -m pl_bert_tpu_torch.data.verify_store on the store, then on a "
+        "copy with one shard file cut short")
+    verified = run_module(["pl_bert_tpu_torch.data.verify_store", store])
+    if verified.returncode or not verified.stdout.startswith("OK (full scan)"):
+        raise AssertionError(f"verify_store: rc {verified.returncode}\n{verified.stdout}"
+                             f"{verified.stderr[-2000:]}")
+    damaged = os.path.join(workdir, "damaged.packed")
+    shutil.copytree(store, damaged)
+    victim = os.path.join(damaged, meta["shards"][0]["dir"], "label_ids.npy")
+    with open(victim, "r+b") as f:
+        f.truncate(os.path.getsize(victim) - 1024)
+    refused = run_module(["pl_bert_tpu_torch.data.verify_store", damaged])
+    shutil.rmtree(damaged)
+    log(f"  {verified.stdout.strip()} (rc 0); the cut copy: rc {refused.returncode}, "
+        f"{refused.stderr.strip()[:200]}")
+    if refused.returncode == 0 or not refused.stderr.startswith("CORRUPT: "):
+        raise AssertionError("verify_store passed a store with a truncated shard file")
+
+    log(f"phase 19 c: training.train.train() on the store, {MT_STEPS} steps of 18 c's "
+        "configuration")
+    store_config = write_config("store.yml", MT_STEPS, store)
+    printed = Tee()
+    counters = reset_counters()  # the store run starts here
+    with contextlib.redirect_stdout(printed):
+        final = train({"config_path": store_config, "run_name": "store", "device": DEV})
+    launches = read_counters(counters)  # the store run ends here
+    if final != MT_STEPS or "memory-mapped packed store: " not in printed.getvalue():
+        raise AssertionError(f"the store run stopped at step {final} or did not read the store")
+    log(f"  launch counters: {launches}")
+    if launches != mt_launches:
+        raise AssertionError(f"store run launches {launches} != 18 c's {mt_launches}")
+    steps = step_records(os.path.join(out_dir, "store"))
+    bitwise_c = hold_losses(steps, production["steps"], "store run against 18 c")
+    sps = float(np.median([r["steps_per_sec"] for r in steps if "steps_per_sec" in r]))
+
+    log("phase 19 d: python -m pl_bert_tpu_torch.training.orchestrate --max_restarts 2 "
+        "--restart_delay 0 on the store, save_interval 3, PLBERT_CRASH_AT_STEP=4")
+    elastic_config = write_config("elastic.yml", 3, store)
+    torch.cuda.empty_cache()  # room for the children on the card
+    t0 = time.perf_counter()
+    launched = run_module(
+        ["pl_bert_tpu_torch.training.orchestrate", "--config_path", elastic_config,
+         "--run_name", "elastic", "--max_restarts", "2", "--restart_delay", "0"],
+        env={"PLBERT_CRASH_AT_STEP": "4"})
+    elastic_s = time.perf_counter() - t0
+    run_dir = os.path.join(out_dir, "elastic")
+    lines = [line for line in launched.stdout.splitlines()
+             if "preemption_count" in line or "Training child exited" in line
+             or "Training completed" in line]
+    log("  " + "; ".join(lines) + f" (launcher rc {launched.returncode}, {elastic_s:.1f} s)")
+    if launched.returncode:
+        raise AssertionError(f"the launcher exited {launched.returncode}:\n"
+                             f"{launched.stdout[-2000:]}\n{launched.stderr[-3000:]}")
+    with open(os.path.join(run_dir, "restart_tracker.json"), encoding="utf-8") as f:
+        restarts = json.load(f)["count"]
+    saved = sorted(n for n in os.listdir(run_dir) if n.startswith("step_"))
+    records = step_records(run_dir)
+    if ("Training child exited rc=17 (attempt 1)" not in launched.stdout or restarts != 1
+            or saved != ["step_3.pth", "step_6.pth"]
+            or [r["step"] for r in records] != [1, 2, 3, 4, 4, 5, 6]):
+        raise AssertionError(f"elastic run: tracker {restarts}, checkpoints {saved}, steps "
+                             f"{[r['step'] for r in records]}")
+    last = list({r["step"]: r for r in records}.values())  # the resumed child's step 4
+    bitwise_d = hold_losses(last, steps, "orchestrated run against 19 c")
+    ckpt = torch.load(os.path.join(run_dir, "step_6.pth"), map_location="cpu",
+                      weights_only=True)
+    fresh = build_model(mp, tp.mixed_precision)
+    if not isinstance(fresh, MultiTaskModel) or ckpt["step"] != MT_STEPS:
+        raise AssertionError("step_6.pth: wrong step or model")
+    fresh.load_state_dict(ckpt["net"], strict=True)
+    log("  step_6.pth loads strictly into a fresh MultiTaskModel")
+    return {"pack_s": pack_s, "batches_compared": compared, "step_ms": 1e3 / sps,
+            "bitwise_c": bitwise_c, "bitwise_d": bitwise_d, "elastic_s": elastic_s,
+            "launches": launches}
+
+
+def phase_store_feed(workdir: str, step_ms: float) -> dict:
+    """19 e. bench.py::run_store_feed at its own settings on the port: a
+    rows store of 50,000 samples of 40-120 words from a 4,096-word pool,
+    then 400 shuffled batches of 96 × 512 after a 20-batch warm-up; the
+    feed against the production step's demand (2 × 96 rows a step)."""
+    import numpy as np
+
+    from pl_bert_tpu_torch.data.packed_store import open_packed_store, write_packed_store
+
+    batch, seq = 96, 512
+    pool_rng = np.random.default_rng(11)
+    alphabet = np.array(list("ɑɐɒæbdfɡhijklmnopqrstuvwzʃʒθðŋɹɾʔˈˌː"))
+    word_pool = ["".join(pool_rng.choice(alphabet, size=int(n)))
+                 for n in pool_rng.integers(2, 10, size=4096)]
+
+    def gen():
+        rng = np.random.default_rng(12)
+        for _ in range(FEED_SAMPLES):
+            idx = rng.integers(0, len(word_pool), size=int(rng.integers(40, 120)))
+            yield {"phonemes": [word_pool[i] for i in idx]}
+
+    path = os.path.join(workdir, "feed.packed")
+    log(f"phase 19 e: the store feed (bench.py run_store_feed): {FEED_SAMPLES} samples of "
+        f"40-120 words packed as rows, {FEED_BATCHES} shuffled batches of {batch} x {seq} "
+        f"after {FEED_WARMUP} warm-up batches")
+    t0 = time.perf_counter()
+    write_packed_store(gen(), path, max_seq_length=seq)
+    pack_s = time.perf_counter() - t0
+    store_bytes = sum(os.path.getsize(os.path.join(d, n))
+                      for d, _, names in os.walk(path) for n in names)
+    rss0 = vm_rss()
+    t0 = time.perf_counter()
+    reader = open_packed_store(path)
+    open_ms = 1e3 * (time.perf_counter() - t0)
+    rng = np.random.default_rng(0)
+    for _ in range(FEED_WARMUP):
+        reader.batch(np.sort(rng.integers(0, len(reader), batch)))
+    n = real = 0
+    t0 = time.perf_counter()
+    for epoch in (1, 2):
+        for b in reader.batches(batch, epoch, seed=3):
+            n += 1
+            real += int(b["lengths"].sum())
+            if n >= FEED_BATCHES:
+                break
+        if n >= FEED_BATCHES:
+            break
+    dt = time.perf_counter() - t0
+    growth = vm_rss() - rss0
+    rows_s = n * batch / dt
+    demand = 2 * batch / (step_ms / 1e3)
+    feed = {"store_bytes": store_bytes, "pack_s": pack_s, "open_ms": open_ms,
+            "rows_per_s": rows_s, "tokens_per_s": rows_s * seq, "real_tokens_per_s": real / dt,
+            "rss_growth": growth, "demand_rows_per_s": demand}
+    log(f"  store {store_bytes} bytes ({len(reader)} rows, {reader.meta['num_long_rows']} long) "
+        f"packed in {pack_s:.1f} s; open {open_ms:.3f} ms; {n} batches in {dt:.3f} s: "
+        f"{rows_s:.0f} rows/s, {rows_s * seq:.0f} token positions/s, {real / dt:.0f} real "
+        f"tokens/s; VmRSS growth over the read pass {growth} bytes "
+        f"({growth / store_bytes:.2%} of the store); the production step needs {demand:.0f} "
+        f"rows/s (2 x {batch} rows at {step_ms:.1f} ms), so the feed is {rows_s / demand:.1f}x "
+        "the demand")
+    if growth >= store_bytes / 4:
+        raise AssertionError(f"VmRSS grew {growth} bytes reading a {store_bytes}-byte store")
+    if rows_s < demand:
+        raise AssertionError(f"the store feeds {rows_s:.0f} rows/s, the step needs {demand:.0f}")
+    return feed
 
 
 def main() -> int:
@@ -2234,10 +2538,16 @@ def main() -> int:
                            "flash_attention", "flash_attention_bwd") if not mt_launches[k]]
     if missing:
         raise AssertionError(f"the multi-task path launched no {missing}")
+    with tempfile.TemporaryDirectory() as workdir:
+        stored = phase_store_run(torch, workdir, production, mt_launches)
+        feed = phase_store_feed(workdir, production["step_ms"])
+    imported = sorted({"datasets", "transformers"} & set(sys.modules))
+    if imported:
+        raise AssertionError(f"the smoke's path imported {imported}")
 
     paths = {"serving": (serve_launches, serving), "training": (train_launches, training),
              "packed_run": (run_launches, flash), "microbench": (bench_launches, flash),
-             "multitask": (mt_launches, flash)}
+             "multitask": (mt_launches, flash), "store_run": (stored["launches"], flash)}
     kernels = []
     for name, (route, source, replaces, path) in KERNELS.items():
         launches, measured = paths[path]
@@ -2262,6 +2572,10 @@ def main() -> int:
         f"at {production['occupancy']:.1%} occupancy, peak {production['peak_bytes'] / 2**30:.2f} "
         f"GiB; the grapheme head {head['times']['fused, gathered']:.2f} ms a micro-batch "
         f"(bound {head['bound_ms']:.2f})")
+    log(f"production run from the packed store: {stored['step_ms']:.1f} ms a step (18 c: "
+        f"{production['step_ms']:.1f}), losses bitwise 18 c's: {stored['bitwise_c']}, the "
+        f"orchestrated run's bitwise the store run's: {stored['bitwise_d']}; the store feeds "
+        f"{feed['rows_per_s']:.0f} rows/s against the step's {feed['demand_rows_per_s']:.0f}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,9 @@
 
 A copy of ``pl_bert_tpu/data/packed.py`` (``pack_token_batch``,
 ``PackedPhonemeDataset``, ``PackedSequenceDataset``): the same arrays for
-the same records and seed. ``pack_batch`` is the numpy route of
-``pl_bert_tpu/runtime/__init__.py::pack_batch_native`` (:98-104); the C++
-packer is not ported yet.
+the same records and seed. Samples are packed by
+``runtime.pack_batch_native``: the C++ packer, or its numpy route where
+the packer cannot be built.
 
 Each sample is encoded ONCE on the host into static arrays
 (label ids + word ids + length); per-step masking randomness then runs
@@ -19,29 +19,7 @@ from typing import Iterator
 
 import numpy as np
 
-from pl_bert_tpu_torch.ops.ondevice_masking import pack_sample
-
-
-def pack_batch(
-    samples: list[list[str]],
-    max_len: int,
-    offsets: np.ndarray | None = None,
-) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Batch of per-word phoneme strings → (label_ids [B, L], word_ids
-    [B, L], lengths [B]). ``offsets`` ([B] int32, default zeros) crops
-    each sample's window to start at that char-stream position (the
-    per-epoch random crop)."""
-    b = len(samples)
-    labels = np.zeros((b, max_len), np.int32)
-    words = np.full((b, max_len), -1, np.int32)
-    lengths = np.zeros(b, np.int32)
-    if offsets is None:
-        offsets = np.zeros(b, np.int32)
-    for i, sample in enumerate(samples):
-        labels[i], words[i], lengths[i] = pack_sample(
-            sample, max_len, offset=int(offsets[i])
-        )
-    return labels, words, lengths
+from pl_bert_tpu_torch.runtime import pack_batch_native
 
 
 def full_lengths(samples: list[list[str]]) -> np.ndarray:
@@ -142,7 +120,7 @@ class PackedPhonemeDataset(_PackedBase):
         self.seed = seed
         self.token_separator = token_separator
         samples = [dataset[i]["phonemes"] for i in range(len(dataset))]
-        self.label_ids, self.word_ids, self.lengths = pack_batch(
+        self.label_ids, self.word_ids, self.lengths = pack_batch_native(
             samples, max_seq_length
         )
         # keep only the samples that need per-epoch re-cropping
@@ -174,7 +152,7 @@ class PackedPhonemeDataset(_PackedBase):
         offsets = rng.integers(
             0, self._long_full_lens - self.max_seq_length
         ).astype(np.int32)
-        labels, words, lengths = pack_batch(
+        labels, words, lengths = pack_batch_native(
             self._long_samples, self.max_seq_length, offsets
         )
         self.label_ids[self._long_idx] = labels
@@ -225,7 +203,7 @@ class PackedSequenceDataset(_PackedBase):
     ) -> None:
         self.max_seq_length = L = max_seq_length
         samples = [dataset[i]["phonemes"] for i in range(len(dataset))]
-        ids, wids, lens = pack_batch(samples, L)
+        ids, wids, lens = pack_batch_native(samples, L)
         self.has_tokens = len(dataset) > 0 and "token_ids" in dataset[0]
         toks = None
         if self.has_tokens:

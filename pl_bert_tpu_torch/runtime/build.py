@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels: ``python -m pl_bert_tpu_torch.runtime.build``.
+"""Build the port's CUDA kernels and its host packer:
+``python -m pl_bert_tpu_torch.runtime.build``.
 
 The counterpart of ``pl_bert_tpu/runtime/build.py``. Every
 ``pl_bert_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` for Hopper
@@ -16,6 +17,12 @@ the library (:func:`ptxas_report`).
 
 Triton kernels compile on their first launch; their cache is pointed at
 the same directory (``_build/triton``) unless ``TRITON_CACHE_DIR`` is set.
+
+The host packer ``runtime/native/packer.cc`` (a plain CPython extension,
+no numpy C API, no CUDA) builds with the host compiler (``$CXX``, else
+``g++``) as ``pl_bert_tpu/runtime/build.py:30-55`` builds it, into the
+same directory, hash-named by its source, flags, compiler and Python
+headers (:func:`build_host`).
 """
 
 from __future__ import annotations
@@ -26,12 +33,16 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
+
+NATIVE_SOURCE = PACKAGE_DIR / "runtime" / "native" / "packer.cc"
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -43,7 +54,7 @@ _lock = threading.Lock()
 
 
 class BuildError(RuntimeError):
-    """nvcc is missing or refused a source."""
+    """A compiler is missing or refused a source."""
 
 
 class LaunchCounter:
@@ -97,20 +108,15 @@ def library_path(name: str, extra_flags: tuple[str, ...] = ()) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str, extra_flags: tuple[str, ...] = ()) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of these exact
-    sources and flags exists. Returns the library's path."""
-    out = library_path(name, extra_flags)
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile under a private name and rename into place, so neither an
-    # interrupted nvcc nor two processes building at once can leave a
-    # truncated library at the final path
-    tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
-    cmd = [nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(_sources(name)[0])]
+def _install(cmd: list[str], tmp: Path, out: Path) -> None:
+    """Run a compiler that writes ``tmp``, then rename it to ``out``:
+    neither an interrupted compiler nor two processes building at once
+    can leave a truncated library at the final path."""
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as exc:  # the compiler itself is missing
+            raise BuildError(f"{' '.join(cmd)} failed: {exc}") from exc
         text = (proc.stdout + proc.stderr).strip()
         if proc.returncode:
             raise BuildError(f"{' '.join(cmd)} failed:\n{text}")
@@ -119,6 +125,43 @@ def build(name: str, extra_flags: tuple[str, ...] = ()) -> Path:
     finally:
         if tmp.exists():
             tmp.unlink()
+
+
+def build(name: str, extra_flags: tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library of these exact
+    sources and flags exists. Returns the library's path."""
+    out = library_path(name, extra_flags)
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
+    _install([nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(_sources(name)[0])],
+             tmp, out)
+    return out
+
+
+def host_library_path() -> Path:
+    """Where the host packer's build of this source, compiler, flags and
+    Python lands (``_plbert_native-<hash><EXT_SUFFIX>``)."""
+    include = sysconfig.get_paths()["include"]
+    suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
+    h = hashlib.sha256(NATIVE_SOURCE.read_bytes())
+    h.update(" ".join((os.environ.get("CXX", "g++"), *HOST_FLAGS, include)).encode())
+    return BUILD_DIR / f"_plbert_native-{h.hexdigest()[:16]}{suffix}"
+
+
+def build_host() -> Path:
+    """Compile ``runtime/native/packer.cc`` for this interpreter unless a
+    library of these exact inputs exists; a failed build raises
+    :class:`BuildError` with the compiler's output."""
+    out = host_library_path()
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
+    include = sysconfig.get_paths()["include"]
+    _install([os.environ.get("CXX", "g++"), *HOST_FLAGS, f"-I{include}",
+              str(NATIVE_SOURCE), "-o", str(tmp)], tmp, out)
     return out
 
 
@@ -172,12 +215,15 @@ def build_all(extra_flags: tuple[str, ...] = ()) -> dict[str, Path]:
 
 
 def main(argv=None) -> None:
-    parser = argparse.ArgumentParser(description="build the port's CUDA kernels")
+    parser = argparse.ArgumentParser(
+        description="build the port's host packer and CUDA kernels")
+
     parser.add_argument(
         "--ptxas_verbose", action="store_true",
         help="print each kernel's registers, shared memory and spills",
     )
     args = parser.parse_args(argv)
+    print(f"built {build_host()}", flush=True)
     for name, path in build_all().items():
         print(f"built {path}", flush=True)
         if args.ptxas_verbose:

@@ -21,8 +21,12 @@ the hand-written kernels; the host pipeline (host masking, or packed
 arrays for on-device masking) prefetched on a thread, which also starts
 the host-to-device copy. ``num_token_vocab > 0`` trains the multi-task
 model (the grapheme head, its token ids carried to the card and its
-``val_token_*`` metrics). The mesh, ZeRO-1, multi-host initialisation,
-packed stores and remat are not ported yet and raise
+``val_token_*`` metrics). ``training_dataset`` is a ``synthetic:N``
+spec, a memory-mapped packed store (``data/packed_store.py``, written by
+``python -m pl_bert_tpu_torch.preprocess.pipeline --stage pack``), a
+``records.jsonl`` directory, an HF ``save_to_disk`` directory or an HF
+hub id (``datasets`` is imported only for the last two). The mesh,
+ZeRO-1, multi-host initialisation and remat are not ported yet and raise
 (``train_step.check_ported``); ``prng_impl`` is read and ignored.
 
 Run: ``python -m pl_bert_tpu_torch.training.train --config_path
@@ -40,8 +44,15 @@ import numpy as np
 import torch
 
 from pl_bert_tpu_torch.config import Config
+from pl_bert_tpu_torch.data.packed_store import (
+    MemmapPackedDataset,
+    _MemmapStoreBase,
+    is_packed_store,
+    open_packed_store,
+)
 from pl_bert_tpu_torch.data.pipeline import build_dataloader, prefetch, to_device
 from pl_bert_tpu_torch.models.albert import build_model, init_params
+from pl_bert_tpu_torch.preprocess.shard_engine import load_processed_dataset
 from pl_bert_tpu_torch.training.checkpoint import (
     AsyncCheckpointWriter,
     checkpoint_path,
@@ -163,22 +174,16 @@ def make_synthetic_corpus(
     return corpus
 
 
-def load_processed_dataset(path: str) -> list[dict]:
-    """The records of a ``records.jsonl`` directory, as
-    ``pl_bert_tpu.preprocess`` writes one (a JSON object with a
-    ``phonemes`` list per line); the counterpart of
-    ``pl_bert_tpu/preprocess/shard_engine.py::load_processed_dataset``."""
-    import json
-
-    with open(os.path.join(path, "records.jsonl"), "r", encoding="utf-8") as f:
-        return [json.loads(line) for line in f if line.strip()]
-
-
 def load_training_dataset(name: str, split: str, token_vocab: int = 0):
-    """Resolve the configured dataset: ``synthetic[-derivable]:N[:POOL
-    [:WMIN-WMAX]]`` (POOL sizes the closed lexicon, WMIN-WMAX the words
-    per sample) or a directory holding ``records.jsonl``. A packed store,
-    an HF ``save_to_disk`` directory and a hub id are not ported yet."""
+    """Resolve the configured dataset, as JAX's ``load_training_dataset``
+    (``pl_bert_tpu/training/train.py:196-242``) does:
+    ``synthetic[-derivable]:N[:POOL[:WMIN-WMAX]]`` (POOL sizes the closed
+    lexicon, WMIN-WMAX the words per sample), a packed store (opened
+    memory-mapped), a ``records.jsonl`` directory, a local
+    ``save_to_disk`` directory (its ``split`` where it holds several) or
+    an HF hub id (reference: train.py:242-259). For synthetic corpora,
+    ``token_vocab`` (the model's num_token_vocab) adds the multi-task
+    token_ids column."""
     if name.startswith("synthetic"):
         fields = name.split(":")
         n = int(fields[1]) if len(fields) > 1 else 2048
@@ -195,17 +200,19 @@ def load_training_dataset(name: str, split: str, token_vocab: int = 0):
             n, token_vocab=token_vocab, derivable=derivable, **kwargs
         )
     if os.path.isdir(name):
-        if os.path.exists(os.path.join(name, "packed_meta.json")):
-            raise NotImplementedError(
-                f"training_dataset {name!r} is a packed store, which is not yet ported to "
-                "pl_bert_tpu_torch"
-            )
+        if is_packed_store(name):  # output of the pack preprocessing stage
+            return open_packed_store(name)
         if os.path.exists(os.path.join(name, "records.jsonl")):
             return load_processed_dataset(name)
-    raise NotImplementedError(
-        f"training_dataset {name!r}: only synthetic:N specs and records.jsonl directories "
-        "are ported to pl_bert_tpu_torch (HF datasets are not yet ported)"
-    )
+        from datasets import load_from_disk
+
+        ds = load_from_disk(name)
+        if hasattr(ds, "keys") and split in getattr(ds, "keys", lambda: [])():
+            ds = ds[split]
+        return ds
+    from datasets import load_dataset
+
+    return load_dataset(name, split=split)
 
 
 def _check_token_vocab(max_tid: int, num_token_vocab: int) -> None:
@@ -220,19 +227,68 @@ def _check_token_vocab(max_tid: int, num_token_vocab: int) -> None:
 
 
 def _max_token_id(dataset) -> int:
-    """The largest grapheme label in a corpus of records; a record
-    without ``token_ids`` is refused."""
+    """The largest grapheme label in a corpus; a record without
+    ``token_ids`` is refused. An arrow dataset is scanned by column (one
+    pyarrow pass, as JAX's ``train.py:485-515``: a row-by-row read would
+    decode every record just to take a max); anything else row by row."""
+    missing = (
+        "multi-task training needs 'token_ids' in every dataset row, but row {} has "
+        "none — run the tokenize preprocessing stage (reference expects this column "
+        "at dataloader.py:40)"
+    )
+    try:
+        import pyarrow.compute as pc
+
+        col = dataset.data.column("token_ids")
+        lens = pc.list_value_length(col)
+        empty = pc.index(lens, 0).as_py()
+        if empty != -1 or lens.null_count:
+            raise ValueError(missing.format(empty if empty != -1 else "with null"))
+        return int(pc.max(pc.list_flatten(col)).as_py())
+    except (ImportError, AttributeError, KeyError, TypeError):
+        pass
     max_tid = -1
     for i in range(len(dataset)):
         ids = dataset[i].get("token_ids")
         if not ids:
-            raise ValueError(
-                "multi-task training needs 'token_ids' in every dataset row, but row "
-                f"{i} has none — run the tokenize preprocessing stage (reference "
-                "expects this column at dataloader.py:40)"
-            )
+            raise ValueError(missing.format(i))
         max_tid = max(max_tid, max(ids))
     return max_tid
+
+
+def _adopt_packed_store(store, tp, dp):
+    """Hold a memory-mapped packed store to this run's config (JAX
+    ``train.py:256-290``): the store was packed with one kind, L and
+    separator, and training against another config would silently change
+    what it means; its per-epoch crop stream keys off the run's seed."""
+    meta = store.meta
+    want_kind = "packed_rows" if dp.sequence_packing else "rows"
+    if meta["kind"] != want_kind:
+        raise ValueError(
+            f"packed store kind={meta['kind']!r} but the config asks for "
+            f"{want_kind!r} (dataset_params.sequence_packing="
+            f"{dp.sequence_packing}) — re-run the pack stage with the "
+            "matching config"
+        )
+    if meta["max_seq_length"] != dp.max_seq_length:
+        raise ValueError(
+            f"packed store was packed at max_seq_length="
+            f"{meta['max_seq_length']} but the config says "
+            f"{dp.max_seq_length} — re-run the pack stage"
+        )
+    if meta["token_separator"] != dp.word_separator:
+        raise ValueError(
+            f"packed store token_separator={meta['token_separator']} != "
+            f"dataset_params.word_separator={dp.word_separator} — re-run "
+            "the pack stage"
+        )
+    if isinstance(store, MemmapPackedDataset):
+        store.seed = tp.seed  # the per-epoch crop stream keys off it
+    print(
+        f"memory-mapped packed store: {meta['num_rows']} rows in "
+        f"{len(meta['shards'])} shards from {store.path}"
+    )
+    return store
 
 
 # the masked positions a sample holds at word_pred_prob p and length L
@@ -319,10 +375,18 @@ class Trainer:
         if dataset is None:
             dataset = load_training_dataset(tp.training_dataset, tp.split,
                                             token_vocab=mp.num_token_vocab)
+        is_store = isinstance(dataset, _MemmapStoreBase)
         self.ondevice_masking = dp.ondevice_masking
         self.masking_params = None
         if dp.sequence_packing and not dp.ondevice_masking:
             raise ValueError("sequence_packing requires ondevice_masking")
+        if is_store and not dp.ondevice_masking:
+            raise ValueError(
+                "a packed store holds pre-encoded arrays, which only the "
+                "on-device masking path consumes — set "
+                "dataset_params.ondevice_masking: true (or point "
+                "training_dataset at the un-packed jsonl dataset)"
+            )
         if self.ondevice_masking:
             from pl_bert_tpu_torch.data.masking import MaskingParams
             from pl_bert_tpu_torch.data.packed import (
@@ -338,17 +402,20 @@ class Trainer:
                 max_seq_length=dp.max_seq_length,
                 word_separator=dp.word_separator,
             )
-            packed_cls = (
-                PackedSequenceDataset if dp.sequence_packing
-                else PackedPhonemeDataset
-            )
-            # FFD packing is deterministic; crop RNG keys off the seed.
-            # token_separator: the grapheme label id at separator
-            # positions (reference: dataloader.py:67-68)
-            kwargs = {"token_separator": dp.word_separator}
-            if not dp.sequence_packing:
-                kwargs["seed"] = tp.seed
-            self.packed = packed_cls(dataset, dp.max_seq_length, **kwargs)
+            if is_store:
+                self.packed = _adopt_packed_store(dataset, tp, dp)
+            else:
+                packed_cls = (
+                    PackedSequenceDataset if dp.sequence_packing
+                    else PackedPhonemeDataset
+                )
+                # FFD packing is deterministic; crop RNG keys off the seed.
+                # token_separator: the grapheme label id at separator
+                # positions (reference: dataloader.py:67-68)
+                kwargs = {"token_separator": dp.word_separator}
+                if not dp.sequence_packing:
+                    kwargs["seed"] = tp.seed
+                self.packed = packed_cls(dataset, dp.max_seq_length, **kwargs)
             if self.use_token_ids:
                 if not self.packed.has_tokens:
                     raise ValueError(
@@ -356,10 +423,18 @@ class Trainer:
                         "every dataset row (per-word grapheme ids, reference: "
                         "dataloader.py:40)"
                     )
-                _check_token_vocab(int(self.packed.token_ids.max()), mp.num_token_vocab)
+                # the store records the max over RAW ids; the separator id
+                # written at separator positions is folded in, as the
+                # in-RAM arrays' max already holds it
+                max_tid = (
+                    max(int(self.packed.meta["max_token_id"]), dp.word_separator)
+                    if is_store else int(self.packed.token_ids.max())
+                )
+                _check_token_vocab(max_tid, mp.num_token_vocab)
             if dp.sequence_packing:
+                n_samples = self.packed.meta["num_samples"] if is_store else len(dataset)
                 print(
-                    f"sequence packing: {len(dataset)} samples → "
+                    f"sequence packing: {n_samples} samples → "
                     f"{len(self.packed)} rows "
                     f"({self.packed.packing_efficiency:.0%} token occupancy)"
                 )

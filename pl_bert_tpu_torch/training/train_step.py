@@ -37,14 +37,13 @@ layer application, as host ints, so a step is reproducible, reading a
 seed never syncs the device, and one seed list drives every attention
 path.
 
-Not ported yet — each raises where asked for: ``remat``, a packed store
-directory and more than one device (see :func:`check_ported`).
+Not ported yet — each raises where asked for: ``remat`` and more than
+one device (see :func:`check_ported`).
 """
 
 from __future__ import annotations
 
 import math
-import os
 from dataclasses import dataclass
 from typing import Callable
 
@@ -65,11 +64,6 @@ def check_ported(config) -> None:
     """Raise ``NotImplementedError`` for a config whose training path is
     not ported yet."""
     tp = config.training_params
-    name = tp.training_dataset
-    if os.path.isdir(name) and os.path.exists(os.path.join(name, "packed_meta.json")):
-        raise NotImplementedError(
-            f"training_dataset {name!r} is a packed store, which is not yet ported to "
-            "pl_bert_tpu_torch")
     if tp.remat:
         raise NotImplementedError(
             "training_params.remat: true (recomputing the encoder's activations in the "

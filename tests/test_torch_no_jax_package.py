@@ -2,8 +2,10 @@
 ``flax``, ``orbax`` or the JAX package ``pl_bert_tpu`` raises, every
 module of ``pl_bert_tpu_torch`` and every module ``chip_smoke.py``
 imports load, the port's HTTP server builds on the CPU and answers a
-request, the port's Trainer runs a packed run and resumes it, and a
-multi-task run trains and ``training/evaluate.py`` scores it."""
+request, the port's Trainer runs a packed run and resumes it, a
+multi-task run trains and ``training/evaluate.py`` scores it, and a
+corpus goes through the pack CLI, ``verify_store`` and the elastic
+launcher into a Trainer run from the packed store."""
 
 import ast
 import subprocess
@@ -63,7 +65,9 @@ def test_every_port_module_and_smoke_import_loads_without_the_jax_package(tmp_pa
     assert "pl_bert_tpu_torch.training.train_step" in mods
     for new in ("ops.flash_attention", "ops.ondevice_masking", "data.packed", "data.pipeline",
                 "training.checkpoint", "training.metrics", "training.train", "utils.profiler",
-                "tools.bench_fused_ln", "training.evaluate", "ops.masked_ce"):
+                "tools.bench_fused_ln", "training.evaluate", "ops.masked_ce",
+                "data.packed_store", "data.verify_store", "preprocess.shard_engine",
+                "preprocess.pipeline", "training.orchestrate", "runtime"):
         assert f"pl_bert_tpu_torch.{new}" in mods, new
     assert "pl_bert_tpu_torch.training.train" in smoke
     assert "pl_bert_tpu_torch.tools" in smoke or "pl_bert_tpu_torch.tools.bench_fused_ln" in smoke
@@ -182,3 +186,41 @@ assert not bad, bad
 print("evaluated")
 '''
     assert _run(code, tmp_path).split()[-1] == "evaluated"
+
+
+def test_pack_verify_and_launch_from_a_store_without_the_jax_package(tmp_path):
+    code = f'''
+import yaml
+from pl_bert_tpu_torch import runtime
+from pl_bert_tpu_torch.data import verify_store
+from pl_bert_tpu_torch.preprocess import pipeline
+from pl_bert_tpu_torch.preprocess.shard_engine import combine_and_save
+from pl_bert_tpu_torch.training.orchestrate import launch
+from pl_bert_tpu_torch.training.train import make_synthetic_corpus
+
+src = {str(tmp_path / "phonemized")!r}
+combine_and_save([make_synthetic_corpus(40, words_per_sample=(3, 12))], src)
+cfg = {str(tmp_path / "cfg.yml")!r}
+raw = {{
+    "training_params": dict(output_dir={str(tmp_path / "runs")!r}, mixed_precision="fp32",
+                            batch_size=4, save_interval=2, log_interval=1, num_steps=2,
+                            training_dataset=src + ".packed"),
+    "dataset_params": dict(max_seq_length=64, ondevice_masking=True, sequence_packing=True),
+    "model_params": dict(hidden_size=128, num_attention_heads=2, intermediate_size=256,
+                         max_position_embeddings=64, num_hidden_layers=2, embedding_size=32,
+                         attention_impl="pallas"),
+}}
+with open(cfg, "w") as f:
+    yaml.safe_dump(raw, f)
+pipeline.main(["--stage", "pack", "--dataset_path", src, "--config_path", cfg])
+assert runtime.NATIVE_PACKS.count > 0 and runtime.NUMPY_PACKS.count == 0
+verify_store.main([src + ".packed"])
+assert launch({{"config_path": cfg, "run_name": "r", "device": "cpu"}}, max_restarts=0,
+              restart_delay=0.0) == 2
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "flax", "orbax", "pl_bert_tpu", "datasets"))
+assert not bad, bad
+print("launched")
+'''
+    out = _run(code, tmp_path)
+    assert "OK (full scan)" in out and out.split()[-1] == "launched"

@@ -263,11 +263,21 @@ def test_checkpoints_cross_the_two_packages(tmp_path):
     assert ckpt.load_checkpoint_meta(exported)["step"] == 7
 
 
-def test_trainer_refuses_what_is_not_ported(tmp_path):
+def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
     cfg = Config.load(_write_config(tmp_path, dataset={"sequence_packing": True}))
     with pytest.raises(ValueError, match="requires ondevice_masking"):
         port_train.Trainer(cfg, str(tmp_path / "r"), resuming=False, device="cpu")
+    # a hub id goes to datasets.load_dataset (here a stand-in: no download)
+    import datasets
+
+    calls = []
+    monkeypatch.setattr(datasets, "load_dataset",
+                        lambda name, split: calls.append((name, split)) or ["rows"])
+    assert port_train.load_training_dataset("some/hub-id", "validation") == ["rows"]
+    assert calls == [("some/hub-id", "validation")]
+    from pl_bert_tpu_torch.preprocess import pipeline
+
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_train.load_training_dataset("some/hub-id", "train")
+        pipeline.main(["--stage", "tokenize", "--dataset_path", str(tmp_path)])
     args = port_train.parse_args(["--config_path", "c.yml", "--run_name", "r"])
     assert args == {"config_path": "c.yml", "run_name": "r", "device": "cuda"}
