@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path, its training step, its Trainer
-entry point and its multi-task pretraining run (from memory, then from a
-packed store under restart supervision) once on one CUDA card.
+entry point, its multi-task pretraining run (from memory, then from a
+packed store under restart supervision), its deployment path (HF export,
+``--hf_dir`` loading, int8 serving) and remat once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -159,10 +160,40 @@ with random weights made from a fixed seed, in order:
       time, rows/s and tokens/s and the VmRSS growth over the read pass,
       and fails unless the feed meets the production step's demand (2 × 96
       rows at 18 c's ms a step) and the growth stays under a quarter of the
-      store's bytes. Nothing of it imports ``datasets`` or ``transformers``.
+      store's bytes. Nothing of it imports ``datasets`` or ``transformers``;
+20. the deployment path:
+   a. ``python -m pl_bert_tpu_torch.export.cli`` in a subprocess on 18 c's
+      ``step_6.pth`` (the multi-task model): the HF directory, with
+      ``token_predictor`` in ``pl_bert_full_model.pt``;
+   b. ``PhonemeEncoder.from_hf_export`` on it gives the hidden states of
+      ``from_checkpoint(step_6.pth)`` bit for bit at B=8, L=512;
+   c. the same checkpoint exported for the block path (``attention_impl:
+      auto``) and served in int8 at B=8, L=512: each of the forward's 26
+      int8 sites (the embedding mapping, the FFN's two layers a layer
+      application, the pooler; K1 keeps its bf16 weights) gives
+      ``torch._int_mm`` accumulators equal to the fp64 product's bit for
+      bit; the int8 encoder is held to its plain version (the eager path
+      on the same weight set) under ``INT8_ENCODER_TOL``, and to the bf16
+      encoder by per-token cosine (≥ 0.99);
+   d. the server started through its entry with ``--hf_dir DIR --int8``
+      answers 16 requests of 5-500 phonemes from 4 client threads through
+      the port's ``ServingClient``, each bit for bit a direct int8 call;
+      the launch counters show K1 12, K5 24 and 26 ``_int_mm`` a forward
+      and nothing else; ``/reload`` to a second export changes the
+      answers to a direct call's on its weights;
+   e. times the int8 forward against the bf16 one at B=8 and B=64, and
+      one FFN layer's int8 dense by part (quantize pass, ``_int_mm``,
+      rescale) against ``F.linear`` in bf16;
+21. remat: bench.py's workload (B=96, L=512, bf16, dropout 0.1, block
+   path), 3 warm-up and 5 timed steps with ``remat`` off and on from the
+   same weights, batches and seeds: losses and grad norms within phase
+   13's gates (it prints whether bitwise), launches a step with remat K3
+   24, K4 12, K5 48, K6 24, peak device memory and ms a step of both; then
+   2 steps on the flash path with remat (K7 24 a step) against 2 without.
 
 Any failure raises and exits non-zero. The line before the last is a
-JSON record of the kernels; the last line is
+JSON record of the kernels (its ``launches_by_path`` also counts them on
+the deployment and the remat path); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -227,6 +258,7 @@ TRAIN_TOL = {"loss": 5e-4, "grad_norm": 5e-3}
 KEEP_TOL = 1e-3
 # the H100's peak rates (NVIDIA's data sheet, SXM, dense) for the bounds
 PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
+PEAK_INT8_OPS = 1979e12
 # 32-bit integer results a clock an SM at compute capability 9.0, for
 # multiply-adds (IMAD, IMAD.HI, IMAD.WIDE) and for logic ops (LOP3) alike,
 # on two pipes (CUDA C++ Programming Guide, "Arithmetic Instructions",
@@ -326,6 +358,20 @@ MT_STEPS = 6
 MT_DATASET = "synthetic:6000:0:8-30"
 # the store feed (phase 19 e): bench.py::run_store_feed's own settings
 FEED_SAMPLES, FEED_BATCHES, FEED_WARMUP = 50_000, 400, 20
+# the int8 encoder on the block path against its plain version (phase
+# 20 c), bf16, valid positions. Its int8 sites are bitwise their plain
+# version (20 c checks each), so the two differ where K1 and K5 round a
+# value one bf16 ulp away from the plain version, as in phase 4 (~4e-3
+# rel-L2 over 12 layers on the card). A flip in front of a quantizer
+# crosses one of its rounding boundaries with a chance of about ulp/step
+# and then moves the value by a whole step; a step (the row's abs-max /
+# 127) is about 10 ulps of a typical element (|x| ~ abs-max / 4, an ulp
+# |x|·2^-8), so the squared change a flip makes grows about 10x and the
+# drift about √10 ≈ 3.2x: phase 4's bf16 gate times 3.2, rounded up
+INT8_ENCODER_TOL = {"max_abs": 6.4e-1, "rel_l2": 5e-2}
+# int8 against bf16, per valid token: JAX's gate (tests/test_quant.py)
+INT8_COSINE = 0.99
+DEPLOY_REQUESTS, DEPLOY_CLIENTS = 16, 4
 MAX_BATCH = 8
 N_CLIENTS, PER_CLIENT = 4, 8
 
@@ -2470,6 +2516,350 @@ def phase_store_feed(workdir: str, step_ms: float) -> dict:
     return feed
 
 
+def int8_bound(M: int, K: int, N: int, out_itemsize: int = 2) -> float:
+    """The least time for an int8 dense layer [M, K] x [N, K]ᵀ: the bf16
+    input read and the output written once, the int8 weight read once,
+    against the int8 operations at the card's int8 peak."""
+    nbytes = M * K * 2 + N * K + M * N * out_itemsize
+    return bound_ms(2 * M * K * N, nbytes, PEAK_INT8_OPS)[0]
+
+
+def phase_deploy(torch, sd, mt_dir: str, smi: str) -> dict:
+    """20. the deployment path: the export CLI on 18 c's checkpoint,
+    ``from_hf_export`` against ``from_checkpoint``, the int8 encoder held
+    to its plain version and to the bf16 one, the server on ``--hf_dir
+    --int8`` and its ``/reload``, and the int8 forward timed."""
+    import collections
+    import dataclasses
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from pl_bert_tpu_torch.config import Config
+    from pl_bert_tpu_torch.export import cli as export_cli
+    from pl_bert_tpu_torch.export.to_hf import export_checkpoint
+    from pl_bert_tpu_torch.models.albert import AlbertModel
+    from pl_bert_tpu_torch.models.inference import PhonemeEncoder
+    from pl_bert_tpu_torch.ops import quant
+    from pl_bert_tpu_torch.serving.client import ServingClient
+    from pl_bert_tpu_torch.serving.server import build_server, serve_in_thread
+
+    t_phase = time.perf_counter()
+    config_path = os.path.join(mt_dir, "production.yml")
+    ckpt = os.path.join(mt_dir, "runs", "production", f"step_{MT_STEPS}.pth")
+    exports = os.path.join(mt_dir, "exports")
+    production = os.path.join(exports, "production")
+    config = Config.load(config_path)
+    vocab, hidden = config.model_params.num_token_vocab, config.model_params.hidden_size
+    L = config.dataset_params.max_seq_length
+    log(f"phase 20 a: python -m pl_bert_tpu_torch.export.cli on 18 c's step_{MT_STEPS}.pth (the "
+        f"multi-task model, a head of {vocab}) in a subprocess")
+    t0 = time.perf_counter()
+    done = run_module(["pl_bert_tpu_torch.export.cli", "--checkpoint_path", ckpt,
+                       "--config_path", config_path, "--output_dir", production], timeout=600)
+    export_s = time.perf_counter() - t0
+    if done.returncode:
+        raise AssertionError(f"the export CLI exited {done.returncode}:\n{done.stderr[-3000:]}")
+    files = sorted(os.listdir(production))
+    head = torch.load(os.path.join(production, "pl_bert_full_model.pt"),
+                      weights_only=True)["token_predictor.weight"]
+    with open(os.path.join(production, "training_metadata.txt"), encoding="utf-8") as f:
+        meta = f.read()
+    log(f"  {files} in {export_s:.1f} s; token_predictor.weight {tuple(head.shape)}; "
+        + "; ".join(meta.splitlines()))
+    if files != ["config.json", "config.yml", "model.safetensors", "pl_bert_full_model.pt",
+                 "training_metadata.txt"] or tuple(head.shape) != (vocab, hidden) or (
+            f"Step: {MT_STEPS}" not in meta):
+        raise AssertionError(f"the export wrote {files}, a head of {tuple(head.shape)}, {meta!r}")
+
+    rng = np.random.default_rng(SEED + 20)
+    texts = [phoneme_text(rng, n) for n in (512, 500, 384, 256, 128, 64, 5, 300)]
+    kw = {"batch_size": MAX_BATCH, "device": DEV}
+    hf = PhonemeEncoder.from_hf_export(production, **kw)
+    pth = PhonemeEncoder.from_checkpoint(ckpt, config_path, **kw)
+    ids, mask, _ = hf.encode_batch(texts)
+    a, b = hf.forward(ids, mask), pth.forward(ids, mask)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(a, b))
+    log(f"phase 20 b: from_hf_export against from_checkpoint(step_{MT_STEPS}.pth), "
+        f"B={MAX_BATCH} L={ids.shape[1]} bf16, the {hf.model.encoder.layer.attention.impl} path: "
+        f"hidden states bitwise equal {same}")
+    if not same or tuple(a.shape) != (MAX_BATCH, L, hidden):
+        raise AssertionError(f"from_hf_export's hidden states {tuple(a.shape)} differ")
+    del hf, pth, a, b
+
+    # the same checkpoint for serving on the block path (attention_impl auto)
+    serving_yml = os.path.join(mt_dir, "serving.yml")
+    with open(config_path, encoding="utf-8") as f:
+        text = f.read()
+    with open(serving_yml, "w", encoding="utf-8") as f:
+        f.write(text.replace("attention_impl: pallas", "attention_impl: auto"))
+    serving = os.path.join(exports, "serving")
+    export_cli.main(["--checkpoint_path", ckpt, "--config_path", serving_yml,
+                     "--output_dir", serving])
+    enc16 = PhonemeEncoder.from_hf_export(serving, **kw)
+    enc8 = PhonemeEncoder.from_hf_export(serving, quantize="int8", **kw)
+    n = enc8.cfg.num_hidden_layers
+    log(f"phase 20 c: int8 at the serving shape: B={MAX_BATCH} L={L} bf16, the "
+        f"{enc8.model.encoder.layer.attention.impl} path")
+    sites = []
+    real = quant.int8_linear
+
+    def record(x, wq, w_scale, bias=None, out_dtype=None):
+        sites.append((x, wq, w_scale, bias, out_dtype))
+        return real(x, wq, w_scale, bias, out_dtype)
+
+    quant.int8_linear = record  # observe the forward's int8 sites
+    try:
+        out8 = enc8.forward(ids, mask)
+    finally:
+        quant.int8_linear = real
+    torch.cuda.synchronize()
+    shapes = collections.Counter(
+        f"[{x.reshape(-1, x.shape[-1]).shape[0]}, {x.shape[-1]}] x [{wq.shape[0]}, "
+        f"{wq.shape[1]}]ᵀ" for x, wq, *_ in sites)
+    for x, wq, w_scale, bias, dt in sites:
+        q, _ = quant.quantize_rows(x.reshape(-1, x.shape[-1]))
+        if not torch.equal(quant.int8_matmul(q, wq), quant.int8_matmul_plain(q, wq)) or (
+                not torch.equal(real(x, wq, w_scale, bias, dt),
+                                quant.int8_linear_plain(x, wq, w_scale, bias, dt))):
+            raise AssertionError(f"int8 site {tuple(x.shape)} x {tuple(wq.shape)}: _int_mm "
+                                 "differs from the fp64 product")
+    log(f"  {len(sites)} int8 sites a forward ({', '.join(f'{s}: {c}' for s, c in shapes.items())}"
+        "): every site's _int_mm accumulators equal the fp64 product's bit for bit, and its "
+        "output the plain version's")
+    if len(sites) != 2 * n + 2:
+        raise AssertionError(f"{len(sites)} int8 sites, not {2 * n + 2}")
+    # the plain version of the block path: the eager path on the block
+    # path's weight set, whose attention is not quantized, runs K1's and
+    # K5's plain versions around the same int8 sites
+    twin = AlbertModel.from_state_dict(dataclasses.replace(enc8.cfg, attention_impl="eager"),
+                                       PhonemeEncoder.hf_encoder_params(serving))
+    with torch.inference_mode():
+        plain8, _ = twin(torch.from_numpy(ids).to(DEV), torch.from_numpy(mask).to(DEV),
+                         weights=enc8.weights)
+    out16 = enc16.forward(ids, mask)
+    torch.cuda.synchronize()
+    valid = torch.from_numpy(mask.astype(bool)).to(DEV)
+    if not torch.isfinite(out8).all():
+        raise AssertionError("int8 encoder: non-finite hidden states")
+    gate("int8 encoder, block path against its plain version", errors(out8[valid], plain8[valid]),
+         INT8_ENCODER_TOL)
+    a, b = out8[valid].float(), out16[valid].float()
+    cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+    rel = errors(out8[valid], out16[valid])["rel_l2"]
+    log(f"  int8 against bf16 over {int(valid.sum())} valid tokens: min cosine "
+        f"{float(cos.min()):.6f} (gate {INT8_COSINE}), mean {float(cos.mean()):.6f}, rel-L2 "
+        f"{rel:.3e}")
+    if float(cos.min()) < INT8_COSINE:
+        raise AssertionError(f"int8 against bf16: min cosine {float(cos.min())}")
+    del twin, plain8, out16
+
+    second = os.path.join(exports, "random")
+    export_checkpoint({f"encoder.{k}": v for k, v in sd.items()},
+                      Config.load(serving_yml).to_dict(), second)
+    argv = ["--hf_dir", serving, "--int8", "--port", "0", "--max_batch", str(MAX_BATCH),
+            "--device", DEV]
+    log(f"phase 20 d: the server on {' '.join(argv[:3])} (no buckets: every forward "
+        f"at L={L}), {DEPLOY_REQUESTS} requests from {DEPLOY_CLIENTS} client threads through "
+        "the port's ServingClient")
+    counters = reset_counters()  # the deployment path's run starts here
+    quant.LAUNCHES.reset()
+    server = build_server(argv)
+    serve_in_thread(server)
+    client = ServingClient(f"127.0.0.1:{server.server_address[1]}", timeout_s=300)
+    try:
+        sizes = [5, 500, *rng.integers(5, 501, DEPLOY_REQUESTS - 2)]
+        requests = [phoneme_text(rng, int(s)) for s in sizes]
+        answers: dict[int, tuple] = {}
+        failures: list[BaseException] = []
+
+        def client_loop(c: int) -> None:
+            try:
+                for i in range(c, len(requests), DEPLOY_CLIENTS):
+                    answers[i] = client.encode(requests[i], encoding="b64")
+            except BaseException as exc:  # noqa: BLE001 — re-raised below
+                failures.append(exc)
+            finally:
+                client.close()
+
+        threads = [threading.Thread(target=client_loop, args=(c,)) for c in range(DEPLOY_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if failures:
+            raise failures[0]
+        if any(t.is_alive() for t in threads) or len(answers) != len(requests):
+            raise AssertionError(f"{len(answers)} of {len(requests)} requests answered")
+        stats = client.stats()
+        launches = read_counters(counters)  # the deployment path's run ends here
+        launches["int8_matmul"] = quant.LAUNCHES.count
+        forwards = 1 + stats["batches"]  # build_server warms L=512 once
+        expect = dict.fromkeys(launches, 0)
+        expect.update({"attention_block": n * forwards, "dropout_add_layernorm": 2 * n * forwards,
+                       "int8_matmul": (2 * n + 2) * forwards})
+        log(f"  {stats['batches']} batches, mean batch {stats['mean_batch_size']:.2f}, p50 "
+            f"{stats['latency_ms']['p50']:.1f} ms; launch counters over {forwards} forwards: "
+            f"{launches}")
+        if launches != expect:
+            raise AssertionError(f"launch counts {launches} != {expect}")
+        direct = PhonemeEncoder.from_hf_export(serving, quantize="int8", **kw)
+        worst, equal = 0.0, 0
+        for i, text in enumerate(requests):
+            hidden, length = answers[i]
+            ref, lengths = direct([text])
+            if length != int(lengths[0]) or not np.isfinite(hidden).all():
+                raise AssertionError(f"request {i}: length {length} vs {lengths[0]}")
+            worst = max(worst, float(np.abs(hidden - ref[0, :length]).max()))
+            equal += bool(np.array_equal(hidden, ref[0, :length]))
+        log(f"  every answer against a direct int8 PhonemeEncoder call: {equal} of "
+            f"{len(requests)} bitwise equal, max_abs {worst:.3e}")
+        if equal != len(requests):
+            raise AssertionError(f"served int8 answers differ from direct calls by {worst}")
+        reply = client.reload(second)
+        fresh = PhonemeEncoder.from_hf_export(second, quantize="int8", **kw)
+        moved = 0
+        for i, text in enumerate(requests[:4]):
+            hidden, length = client.encode(text, encoding="b64")
+            if not np.array_equal(hidden, fresh([text])[0][0, :length]):
+                raise AssertionError(f"after /reload, request {i} differs from a direct call")
+            moved += not np.array_equal(hidden, answers[i][0])
+        log(f"  /reload {reply}: {moved} of 4 answers changed, each bitwise a direct int8 "
+            "call on the new export's weights")
+        if moved != 4:
+            raise AssertionError("/reload left answers unchanged")
+    finally:
+        client.close()
+        server.shutdown()
+        server.batcher.close()
+        server.server_close()
+    del direct, fresh
+
+    log(f"phase 20 e: the int8 forward against the bf16 forward, L={L}, the block path; CUDA "
+        f"events around back-to-back serving forwards, host included ({smi})")
+    times = {}
+    for B, iters in ((MAX_BATCH, 20), (64, 10)):
+        e16 = PhonemeEncoder.from_hf_export(serving, batch_size=B, device=DEV)
+        e8 = PhonemeEncoder.from_hf_export(serving, batch_size=B, quantize="int8", device=DEV)
+        bi, bm, _ = e16.encode_batch(texts * (B // len(texts)))
+        ms8, ms16 = a_b(torch, lambda: e16.forward(bi, bm), lambda: e8.forward(bi, bm), iters)
+        times[B] = (ms8, ms16)
+        log(f"  B={B}: int8 {ms8:.3f} ms a forward, bf16 {ms16:.3f} ms ({ms8 / ms16:.3f}x) ({smi})")
+        del e16, e8
+    x, wq, w_scale, bias, dt = sites[1]  # the first FFN layer
+    x2 = x.reshape(-1, x.shape[-1])
+    q, x_scale = quant.quantize_rows(x2)
+    acc = quant.int8_matmul(q, wq)
+    w16 = enc16.weights["encoder"]["layer"]["ffn"]
+    M, K, N = x2.shape[0], x2.shape[1], wq.shape[0]
+    parts = {
+        "quantize pass": graph_ms(torch, lambda: quant.quantize_rows(x2), 20),
+        "_int_mm": graph_ms(torch, lambda: quant.int8_matmul(q, wq), 20),
+        "rescale + bias": graph_ms(torch, lambda: quant.rescale(acc, x_scale, w_scale, bias, dt), 20),
+        "int8 dense": graph_ms(torch, lambda: real(x2, wq, w_scale, bias, dt), 20),
+        "F.linear bf16": graph_ms(torch, lambda: F.linear(x2, w16["w"], w16["b"]), 20),
+    }
+    bf16_bound = bound_ms(2 * M * K * N, (M * K + N * K + M * N) * 2)[0]
+    log(f"  one FFN dense [{M}, {K}] x [{N}, {K}]ᵀ, device ms a call (graph replay): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+        + f"; bound int8 {int8_bound(M, K, N):.4f}, bf16 {bf16_bound:.4f} ({smi})")
+    wall = time.perf_counter() - t_phase
+    log(f"phase 20 took {wall:.1f} s")
+    del enc8, enc16, sites, out8
+    torch.cuda.empty_cache()
+    return {"launches": launches, "times": times, "parts": parts, "min_cos": float(cos.min()),
+            "rel_l2": rel, "wall_s": wall}
+
+
+def phase_remat(torch, smi: str) -> dict:
+    """21. remat on bench.py's workload, against the same run without it,
+    on the block path; then on the flash path."""
+    import dataclasses
+
+    import numpy as np
+
+    from pl_bert_tpu_torch.config import Config
+    from pl_bert_tpu_torch.data.synthetic import full_length_batches
+    from pl_bert_tpu_torch.models.albert import build_model, init_params
+    from pl_bert_tpu_torch.training import train_step as ts
+
+    t_phase = time.perf_counter()
+    config = Config()  # configs/config.yml's values: bf16, B 96, L 512, AdamW 7e-5
+    mp, tp = config.model_params, config.training_params
+    B, L, n = tp.batch_size, config.dataset_params.max_seq_length, mp.num_hidden_layers
+    pool = full_length_batches(4, B, L)
+
+    def run(impl: str, remat: bool, warm: int, timed: int) -> dict:
+        model = init_params(build_model(dataclasses.replace(mp, attention_impl=impl),
+                                        tp.mixed_precision, remat=remat), seed=SEED).to(DEV)
+        tx = ts.make_optimizer(tp)
+        state = ts.TrainState(model, tx.init(model))
+        step = ts.make_train_step(model, tx, seed=tp.seed)
+        metrics = [{k: float(v) for k, v in step(state, pool[i % len(pool)])[1].items()}
+                   for i in range(warm)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters = reset_counters()  # the remat path's run starts here
+        t0 = time.perf_counter()
+        for i in range(warm, warm + timed):  # a host read a step: each has finished
+            metrics.append({k: float(v) for k, v in step(state, pool[i % len(pool)])[1].items()})
+        wall = time.perf_counter() - t0
+        launches = read_counters(counters)  # the remat path's run ends here
+        peak = torch.cuda.max_memory_allocated()
+        del state, model, tx, step
+        torch.cuda.empty_cache()
+        per_step = {k: v / timed for k, v in launches.items()}
+        log(f"  {impl} path, remat {remat}: losses {[round(m['loss'], 5) for m in metrics]}; "
+            f"{wall / timed * 1e3:.1f} ms a step over {timed}; peak device memory "
+            f"{peak / 2**30:.2f} GiB ({peak} bytes); launches a step {per_step} ({smi})")
+        kernel = {"auto": "attention_block_train", "pallas": "flash_attention"}[impl]
+        bwd = {"auto": "attention_block_bwd", "pallas": "flash_attention_bwd"}[impl]
+        expect = dict.fromkeys(launches, 0)
+        expect.update({kernel: (2 if remat else 1) * n * timed, bwd: n * timed,
+                       "dropout_add_layernorm": (4 if remat else 2) * n * timed,
+                       "dropout_add_layernorm_bwd": 2 * n * timed})
+        if launches != expect:
+            raise AssertionError(f"launch counts {launches} != {expect}")
+        if not all(np.isfinite(m[k]) for m in metrics for k in ("loss", "grad_norm")):
+            raise AssertionError(f"non-finite metrics: {metrics}")
+        return {"metrics": metrics, "step_ms": wall / timed * 1e3, "peak": peak,
+                "launches": launches}
+
+    def compare(on: dict, off: dict, label: str) -> bool:
+        worst = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(on["metrics"], off["metrics"]))
+                 for k in TRAIN_TOL}
+        bitwise = all(a[k] == b[k] for a, b in zip(on["metrics"], off["metrics"]) for k in TRAIN_TOL)
+        log(f"  {label}: largest relative difference loss {worst['loss']:.2e}, grad_norm "
+            f"{worst['grad_norm']:.2e} (gates {TRAIN_TOL['loss']:.0e}, "
+            f"{TRAIN_TOL['grad_norm']:.0e}); bitwise equal: {bitwise}")
+        if any(worst[k] > TRAIN_TOL[k] for k in TRAIN_TOL):
+            raise AssertionError(f"{label}: remat off the run without it: {worst}")
+        return bitwise
+
+    log(f"phase 21: remat on bench.py's workload (B={B}, L={L}, {tp.mixed_precision}, dropout "
+        f"{mp.dropout}, the block path): 3 warm-up and 5 timed steps with remat off, on, and "
+        "off again, from the same weights, batches and seeds (the second run without remat "
+        "shows whether the step repeats bit for bit on the card without it)")
+    off = run("auto", False, 3, 5)
+    on = run("auto", True, 3, 5)
+    again = run("auto", False, 3, 5)
+    bitwise = compare(on, off, "block path, remat against none over 8 steps")
+    repeats = compare(again, off, "block path, none against none over 8 steps")
+    log(f"  remat: {on['step_ms']:.1f} against {off['step_ms']:.1f} ms a step "
+        f"({on['step_ms'] / off['step_ms'] - 1:+.1%}); peak {on['peak'] / 2**30:.2f} against "
+        f"{off['peak'] / 2**30:.2f} GiB ({(off['peak'] - on['peak']) / 1e9:.2f} GB less) ({smi})")
+    log("phase 21: 2 steps on the flash path (attention_impl pallas) with remat, and without")
+    flash_on = run("pallas", True, 0, 2)
+    flash_off = run("pallas", False, 0, 2)
+    flash_bitwise = compare(flash_on, flash_off, "flash path, remat against none over 2 steps")
+    wall = time.perf_counter() - t_phase
+    log(f"phase 21 took {wall:.1f} s")
+    return {"on": on, "off": off, "bitwise": bitwise, "repeats": repeats,
+            "flash_bitwise": flash_bitwise,
+            "launches": on["launches"], "wall_s": wall}
+
+
 def main() -> int:
     try:
         import torch
@@ -2532,22 +2922,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     head = phase_multitask_head(torch)
     phase_multitask_step(torch)
-    with tempfile.TemporaryDirectory() as workdir:
-        production, mt_launches = phase_production_run(torch, workdir)
-    missing = [k for k in ("dropout_add_layernorm", "dropout_add_layernorm_bwd",
-                           "flash_attention", "flash_attention_bwd") if not mt_launches[k]]
-    if missing:
-        raise AssertionError(f"the multi-task path launched no {missing}")
-    with tempfile.TemporaryDirectory() as workdir:
-        stored = phase_store_run(torch, workdir, production, mt_launches)
-        feed = phase_store_feed(workdir, production["step_ms"])
-    imported = sorted({"datasets", "transformers"} & set(sys.modules))
+    with tempfile.TemporaryDirectory() as mt_dir:
+        production, mt_launches = phase_production_run(torch, mt_dir)
+        missing = [k for k in ("dropout_add_layernorm", "dropout_add_layernorm_bwd",
+                               "flash_attention", "flash_attention_bwd") if not mt_launches[k]]
+        if missing:
+            raise AssertionError(f"the multi-task path launched no {missing}")
+        with tempfile.TemporaryDirectory() as workdir:
+            stored = phase_store_run(torch, workdir, production, mt_launches)
+            feed = phase_store_feed(workdir, production["step_ms"])
+        torch.cuda.empty_cache()
+        deploy = phase_deploy(torch, sd, mt_dir, smi)  # on 18 c's step_6.pth
+    remat = phase_remat(torch, smi)
+    imported = sorted({"datasets", "transformers", "safetensors"} & set(sys.modules))
     if imported:
         raise AssertionError(f"the smoke's path imported {imported}")
 
     paths = {"serving": (serve_launches, serving), "training": (train_launches, training),
              "packed_run": (run_launches, flash), "microbench": (bench_launches, flash),
-             "multitask": (mt_launches, flash), "store_run": (stored["launches"], flash)}
+             "multitask": (mt_launches, flash), "store_run": (stored["launches"], flash),
+             "deploy": (deploy["launches"], flash), "remat": (remat["launches"], flash)}
     kernels = []
     for name, (route, source, replaces, path) in KERNELS.items():
         launches, measured = paths[path]
@@ -2576,6 +2970,15 @@ def main() -> int:
         f"{production['step_ms']:.1f}), losses bitwise 18 c's: {stored['bitwise_c']}, the "
         f"orchestrated run's bitwise the store run's: {stored['bitwise_d']}; the store feeds "
         f"{feed['rows_per_s']:.0f} rows/s against the step's {feed['demand_rows_per_s']:.0f}")
+    (ms8, ms16), (ms8_64, ms16_64) = deploy["times"][MAX_BATCH], deploy["times"][64]
+    log(f"int8 serving (block path, L=512): {ms8:.3f} against bf16 {ms16:.3f} ms a forward at "
+        f"B={MAX_BATCH}, {ms8_64:.3f} against {ms16_64:.3f} at B=64; min cosine to bf16 "
+        f"{deploy['min_cos']:.6f} ({smi})")
+    on, off = remat["on"], remat["off"]
+    log(f"remat (block path, B=96): {on['step_ms']:.1f} against {off['step_ms']:.1f} ms a step, "
+        f"peak {on['peak'] / 2**30:.2f} against {off['peak'] / 2**30:.2f} GiB, bitwise "
+        f"{remat['bitwise']} (without remat, a second run bitwise the first: {remat['repeats']}) "
+        f"({smi})")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

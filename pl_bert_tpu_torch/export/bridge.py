@@ -22,9 +22,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_HEADS = ("phoneme_predictor.", "token_predictor.")
+HEADS = ("phoneme_predictor.", "token_predictor.")
 # HF registers position ids as a buffer; older versions saved it
-_BUFFERS = ("embeddings.position_ids",)
+BUFFERS = ("embeddings.position_ids",)
 
 # Flax-side path of every HF AlbertModel tensor, relative to the encoder
 # param sub-tree: (hf_name, flax_path, transpose). torch nn.Linear stores
@@ -66,6 +66,8 @@ _ENCODER_MAP: list[tuple[str, tuple[str, ...], bool]] = [
     ("pooler.weight", ("pooler", "kernel"), True),
     ("pooler.bias", ("pooler", "bias"), False),
 ]
+# HF AlbertModel's keys, which are the port's AlbertModel's
+ENCODER_KEYS = tuple(name for name, _, _ in _ENCODER_MAP)
 # the phoneme-only model: the encoder under "encoder", plus its head
 _MODEL_MAP = [
     (f"encoder.{hf}", ("encoder",) + path, transpose)
@@ -157,11 +159,11 @@ def encoder_state_dict(state_dict: dict) -> dict[str, torch.Tensor]:
     model_level = any(k.startswith("encoder.embeddings.") for k in sd)
     out = {}
     for key, value in sd.items():
-        if key.startswith(_HEADS):
+        if key.startswith(HEADS):
             continue
         if model_level and key.startswith("encoder."):
             key = key[len("encoder."):]
-        if key in _BUFFERS:
+        if key in BUFFERS:
             continue
         out[key] = value
     return out

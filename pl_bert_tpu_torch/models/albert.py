@@ -5,8 +5,7 @@ factorized embedding vocab → embedding_size → hidden_size), its serving
 forward and its training forward (``deterministic=False``: dropout, and
 gradients through the kernels' ``autograd.Function``s), and
 ``PhonemeOnlyModel``, the encoder with the masked-phoneme head, and
-``MultiTaskModel``, which adds the grapheme (token) head. int8 and remat
-come with later slices.
+``MultiTaskModel``, which adds the grapheme (token) head.
 
 Submodules carry HF ``AlbertModel``'s names, so ``state_dict()`` keys are
 exactly the names of ``pl_bert_tpu/export/to_hf.py:28-76`` and a
@@ -42,6 +41,14 @@ training; a kernel path whose kernels do not take the model's shapes
 built, and the model logs why. All three read the same parameters, so
 one state dict drives them all.
 
+``quantize="int8"`` makes the serving weight set quantize JAX's
+``_dense`` sites on the path the model runs (``ops/quant.py`` says
+which: on the ``auto`` path the attention-block kernel keeps its bf16
+weights); the forward then runs each such site as an int8 dense layer.
+It is inference-only, as in JAX. ``remat`` recomputes each application
+of the shared layer in the backward (``torch.utils.checkpoint``), as JAX
+wraps the layer in ``nn.remat`` (pl_bert_tpu/models/albert.py:508-509).
+
 Dropout draws one seed per site per layer application per forward —
 the embedding, then (attention, first LayerNorm, second LayerNorm) for
 each application — as host ints (:func:`draw_dropout_seeds`), the
@@ -56,8 +63,11 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from pl_bert_tpu_torch.ops import quant
 from pl_bert_tpu_torch.ops.attention import (
+    eager_attention,
     fused_attention,
     kernel_refusal,
     resolve_impl,
@@ -91,9 +101,12 @@ class AlbertConfig:
     hidden_act: str = "gelu_new"
     attention_impl: str = "auto"  # auto (block) | pallas (flash) | eager/xla
     dtype: torch.dtype = torch.float32  # compute dtype (params stay fp32)
+    remat: bool = False  # recompute each layer application in the backward
+    quantize: str | None = None  # None | "int8" (inference-only)
 
     @classmethod
-    def from_params(cls, p, dtype: torch.dtype = torch.float32) -> "AlbertConfig":
+    def from_params(cls, p, dtype: torch.dtype = torch.float32,
+                    remat: bool = False) -> "AlbertConfig":
         """From any object with ``ModelParams``' attribute names
         (``pl_bert_tpu_torch.config.ModelParams``, or another AlbertConfig)."""
         return cls(
@@ -110,6 +123,7 @@ class AlbertConfig:
             hidden_act=str(p.hidden_act),
             attention_impl=str(p.attention_impl),
             dtype=dtype,
+            remat=remat,
         )
 
     @property
@@ -137,7 +151,12 @@ def attention_bias_from_mask(attention_mask) -> torch.Tensor:
     return bias[:, None, None, :]
 
 
-def _linear_weights(layer: nn.Linear, dtype) -> dict:
+def _linear_weights(layer: nn.Linear, dtype, int8: bool = False) -> dict:
+    """A dense layer's serving weights in the compute dtype; with
+    ``int8``, its int8 weight and per-channel scales (``ops/quant.py``)."""
+    if int8:
+        wq, ws = quant.quantize_weight(layer.weight, dtype)
+        return {"wq": wq, "ws": ws, "b": layer.bias.to(dtype)}
     return {"w": layer.weight.to(dtype), "b": layer.bias.to(dtype)}
 
 
@@ -147,8 +166,22 @@ def _ln_weights(ln: nn.LayerNorm) -> dict:
 
 def _linear(x, w: dict, dtype):
     """A dense layer in the compute dtype; a training set's fp32 weights
-    are cast here, per application (a serving set's already are)."""
+    are cast here, per application (a serving set's already are); an int8
+    site of a serving set runs as ``quant.int8_linear``."""
+    if "wq" in w:
+        return quant.int8_linear(x, w["wq"], w["ws"], w["b"], dtype)
     return F.linear(x, w["w"].to(dtype), w["b"].to(dtype))
+
+
+def _project(x, w: dict, name: str, dtype):
+    """The attention's packed q|k|v (``name`` "qkv") or output ("o")
+    projection of [rows, in] ``x``: an int8 site (``w[name]``), or the
+    [in, out] matrix and bias of a serving set (``wqkv``, ``bqkv``) or a
+    training set (``wqkv32``; cast here, per application)."""
+    if name in w:
+        return _linear(x, w[name], dtype)
+    mat = w[f"w{name}32"] if f"w{name}32" in w else w[f"w{name}"]
+    return torch.addmm(w[f"b{name}"].to(dtype), x, mat.to(dtype))
 
 
 def draw_dropout_seeds(generator: torch.Generator, num_layers: int) -> list[int]:
@@ -240,6 +273,16 @@ class AlbertSelfAttention(nn.Module):
         self.LayerNorm = nn.LayerNorm(H, eps=cfg.layer_norm_eps)
 
     def compute_weights(self, dtype) -> dict:
+        if self.cfg.quantize and self.impl != "block":
+            # JAX's query, key, value and dense sites, q|k|v as one int8
+            # layer: per-channel weight scales and one per-row activation
+            # scale give the bits of three
+            q, k, v = self.query, self.key, self.value
+            wq, ws = quant.quantize_weight(torch.cat([q.weight, k.weight, v.weight]), dtype)
+            bqkv = torch.cat([q.bias, k.bias, v.bias]).to(dtype)
+            return {"qkv": {"wq": wq, "ws": ws, "b": bqkv},
+                    "o": _linear_weights(self.dense, dtype, int8=True),
+                    "ln": _ln_weights(self.LayerNorm)}
         # nn.Linear stores [out, in]; the kernel takes JAX's [in, out]
         wqkv, bqkv, wo, bo = pack_weights(
             self.query.weight.T, self.query.bias, self.key.weight.T,
@@ -266,31 +309,32 @@ class AlbertSelfAttention(nn.Module):
             "ln": {"g": self.LayerNorm.weight, "b": self.LayerNorm.bias},
         }
 
-    def _flash(self, hidden, attention_bias, segment_ids, w: dict, seed=None):
-        """The ``pallas`` branch of the JAX model: q, k, v from one GEMM
-        on the packed [E, 3P] weight (three dense layers' worth; the
-        kernel reads the three sections in place), K7 (K8 under
-        autograd), then the ``dense`` projection. A training set's fp32
-        weights are cast here, per application, as :func:`_linear` does."""
+    def _projected(self, hidden, attention_bias, segment_ids, w: dict, seed=None):
+        """JAX's ``pallas`` and ``xla`` branches: q, k, v from one
+        projection (three dense layers' worth; the flash kernel reads the
+        three sections in place), the attention — K7 (K8 under autograd)
+        on the flash path, the plain attention on the eager path of an
+        int8 weight set — then the ``dense`` projection."""
         cfg = self.cfg
         B, L, E = hidden.shape
         dtype, nh = cfg.dtype, cfg.num_attention_heads
-        wqkv, wo = (w["wqkv32"], w["wo32"]) if "wqkv32" in w else (w["wqkv"], w["wo"])
-        qkv = torch.addmm(w["bqkv"].to(dtype), hidden.reshape(B * L, E), wqkv.to(dtype))
+        qkv = _project(hidden.reshape(B * L, E), w, "qkv", dtype)
         q, k, v = (t.reshape(B, L, nh, cfg.head_dim) for t in qkv.split(E, dim=1))
-        ctx = fused_attention(
-            q, k, v, attention_bias, segment_ids, dtype=dtype,
-            dropout_rate=cfg.dropout if seed is not None else 0.0, dropout_seed=seed,
-        )
-        out = torch.addmm(w["bo"].to(dtype), ctx.reshape(B * L, E), wo.to(dtype))
-        return out.reshape(B, L, E)
+        if self.impl == "flash":
+            ctx = fused_attention(
+                q, k, v, attention_bias, segment_ids, dtype=dtype,
+                dropout_rate=cfg.dropout if seed is not None else 0.0, dropout_seed=seed,
+            )
+        else:
+            ctx = eager_attention(q, k, v, attention_bias, segment_ids, dtype=dtype)
+        return _project(ctx.reshape(B * L, E), w, "o", dtype).reshape(B, L, E)
 
     def forward(self, hidden, attention_bias, segment_ids, w: dict, seeds=None):
         cfg = self.cfg
-        if self.impl == "flash":
+        if self.impl == "flash" or "qkv" in w:
             train = seeds is not None
-            out = self._flash(hidden, attention_bias, segment_ids, w,
-                              seeds[0] if train else None)
+            out = self._projected(hidden, attention_bias, segment_ids, w,
+                                  seeds[0] if train else None)
             return _add_layernorm(
                 self.ln_fns, out, hidden, w["ln"], cfg.layer_norm_eps, train,
                 seeds[1] if train else None, cfg.dropout if train else 0.0,
@@ -351,10 +395,11 @@ class AlbertLayer(nn.Module):
         self.act = _act(cfg.hidden_act)
 
     def compute_weights(self, dtype) -> dict:
+        int8 = self.cfg.quantize is not None
         return {
             "attention": self.attention.compute_weights(dtype),
-            "ffn": _linear_weights(self.ffn, dtype),
-            "ffn_output": _linear_weights(self.ffn_output, dtype),
+            "ffn": _linear_weights(self.ffn, dtype, int8),
+            "ffn_output": _linear_weights(self.ffn_output, dtype, int8),
             "ln": _ln_weights(self.full_layer_layer_norm),
         }
 
@@ -403,7 +448,8 @@ class AlbertEncoder(nn.Module):
 
     def compute_weights(self, dtype) -> dict:
         return {
-            "mapping": _linear_weights(self.embedding_hidden_mapping_in, dtype),
+            "mapping": _linear_weights(self.embedding_hidden_mapping_in, dtype,
+                                       self.cfg.quantize is not None),
             "layer": self.layer.compute_weights(dtype),
         }
 
@@ -414,13 +460,21 @@ class AlbertEncoder(nn.Module):
 
     def forward(self, embeddings, attention_bias, segment_ids, w: dict, seeds=None):
         """``seeds``: one (attention, LN, LN) triple per application for
-        the training forward; None for the serving one."""
+        the training forward; None for the serving one. With ``remat``, a
+        training forward keeps only each application's input: the
+        backward runs the application again from it. Its seeds are
+        arguments, so the recomputation draws the same dropout masks
+        (Philox for the attention, ``tl.rand`` for the LayerNorm) and
+        needs no saved RNG state."""
         hidden = _linear(embeddings, w["mapping"], self.cfg.dtype)
         for i in range(self.cfg.num_hidden_layers):
-            hidden = self.layer(
-                hidden, attention_bias, segment_ids, w["layer"],
-                None if seeds is None else seeds[i],
-            )
+            args = (hidden, attention_bias, segment_ids, w["layer"],
+                    None if seeds is None else seeds[i])
+            if seeds is not None and self.cfg.remat:
+                hidden = checkpoint(self.layer, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+            else:
+                hidden = self.layer(*args)
         return hidden
 
 
@@ -430,6 +484,8 @@ class AlbertModel(nn.Module):
 
     def __init__(self, cfg: AlbertConfig) -> None:
         super().__init__()
+        if cfg.quantize not in (None, "int8"):
+            raise ValueError(f"unsupported quantize mode {cfg.quantize!r}; only 'int8'")
         self.cfg = cfg
         self.embeddings = AlbertEmbeddings(cfg)
         self.encoder = AlbertEncoder(cfg)
@@ -447,13 +503,14 @@ class AlbertModel(nn.Module):
     @torch.no_grad()
     def compute_weights(self, device=None) -> dict:
         """The serving weight set: compute-dtype copies made from the
-        current parameters, moved to ``device`` (default: where the
-        parameters are)."""
-        dtype = self.cfg.dtype
+        current parameters (int8 ones at the int8 sites of a quantized
+        model), moved to ``device`` (default: where the parameters are)."""
+        cfg = self.cfg
+        dtype = cfg.dtype
         w = {
             "embeddings": self.embeddings.compute_weights(dtype),
             "encoder": self.encoder.compute_weights(dtype),
-            "pooler": _linear_weights(self.pooler, dtype),
+            "pooler": _linear_weights(self.pooler, dtype, cfg.quantize is not None),
         }
         return move_weights(w, device) if device is not None else w
 
@@ -488,6 +545,9 @@ class AlbertModel(nn.Module):
         if deterministic:
             w = self.compute_weights() if weights is None else weights
         else:
+            if cfg.quantize is not None:
+                raise ValueError(f"quantize={cfg.quantize!r} is inference-only: the "
+                                 "training forward runs unquantized")
             w = self.train_weights()
             n = cfg.num_hidden_layers
             if cfg.dropout > 0.0:
@@ -567,15 +627,16 @@ class MultiTaskModel(PhonemeOnlyModel):
         return phoneme, _head(self.token_predictor, hidden, self.cfg.dtype)
 
 
-def build_model(params, mixed_precision: str = "bf16") -> PhonemeOnlyModel:
+def build_model(params, mixed_precision: str = "bf16", remat: bool = False) -> PhonemeOnlyModel:
     """The counterpart of ``pl_bert_tpu/models/albert.py::build_model``
     (:609-621): phoneme-only unless ``num_token_vocab`` is set, then
     :class:`MultiTaskModel`; ``params`` has ``ModelParams``' attribute
-    names. Parameters are created with torch's default init;
+    names; ``remat`` recomputes each layer application in the backward.
+    Parameters are created with torch's default init;
     :func:`init_params` gives the JAX package's initial distribution, and
     ``export/bridge.py`` loads JAX's own."""
     dtype = torch.bfloat16 if mixed_precision in ("bf16", "fp16") else torch.float32
-    cfg = AlbertConfig.from_params(params, dtype=dtype)
+    cfg = AlbertConfig.from_params(params, dtype=dtype, remat=remat)
     if getattr(params, "num_token_vocab", 0) > 0:
         return MultiTaskModel(cfg, params.vocab_size, params.num_token_vocab)
     return PhonemeOnlyModel(cfg, params.vocab_size)

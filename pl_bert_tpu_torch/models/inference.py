@@ -15,16 +15,21 @@ come down on a copy stream of the encoder's own, behind an event at the
 end of that batch's forward and before the next batch's, so ``fetch``
 waits for its own batch and nothing else.
 
-Weights come from a reference ``.pth`` (``export/bridge.py``), never
-from orbax or an HF directory.
+Weights come from a reference ``.pth`` (``export/bridge.py``) or from
+an HF export directory (``export/to_hf.py``), never from orbax.
+``quantize="int8"`` runs JAX's dense sites as int8 layers
+(``ops/quant.py``); the weights are quantized once per weight set.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from pl_bert_tpu_torch.export.bridge import load_reference_pth
+from pl_bert_tpu_torch.export.to_hf import load_pl_bert_model
 from pl_bert_tpu_torch.models.albert import AlbertConfig, AlbertModel, move_weights
 from pl_bert_tpu_torch.text.symbols import encode
 
@@ -62,17 +67,15 @@ class PhonemeEncoder:
         batch to this size, so every forward has one of a few shapes.
         ``seq_buckets``: ascending sequence-length buckets; a call pads to
         the smallest bucket covering its longest input (valid-prefix
-        hidden states are the same either way). ``device``: where the
-        weights live and the forward runs; CUDA by default, and there is
-        no silent fall back to the CPU."""
-        if quantize is not None:
-            raise NotImplementedError(
-                f"quantize={quantize!r}: int8 serving is not yet ported "
-                "to pl_bert_tpu_torch"
-            )
+        hidden states are the same either way). ``quantize="int8"``: the
+        dense projections with int8 operands (``ops/quant.py``; any other
+        value raises ``ValueError``). ``device``: where the weights live
+        and the forward runs; CUDA by default, and there is no silent fall
+        back to the CPU."""
         self.device = _device(device)
         dtype = torch.bfloat16 if mixed_precision == "bf16" else torch.float32
-        self.cfg = AlbertConfig.from_params(model_params, dtype=dtype)
+        self.cfg = dataclasses.replace(
+            AlbertConfig.from_params(model_params, dtype=dtype), quantize=quantize)
         self.model = AlbertModel.from_state_dict(self.cfg, state_dict)
         self._spec = {
             k: (tuple(v.shape), v.dtype) for k, v in self.model.state_dict().items()
@@ -123,7 +126,7 @@ class PhonemeEncoder:
                     "keep the model shape"
                 )
         model = AlbertModel.from_state_dict(self.cfg, new)
-        weights = model.compute_weights(self.device)
+        weights = model.compute_weights(self.device)  # int8 ones quantized anew
         self.model = model
         self.weights = weights
 
@@ -167,6 +170,27 @@ class PhonemeEncoder:
             cls.checkpoint_encoder_params(checkpoint_path), model_params,
             max_seq_length, **kwargs,
         )
+
+    @staticmethod
+    def hf_encoder_params(model_dir: str) -> dict:
+        """The encoder's state dict from an HF export directory — what
+        :meth:`from_hf_export` builds from and a server started with
+        ``--hf_dir`` reloads."""
+        return load_pl_bert_model(model_dir)[0]
+
+    @classmethod
+    def from_hf_export(cls, model_dir: str, **kwargs) -> "PhonemeEncoder":
+        """Load from a directory written by ``pl_bert_tpu_torch.export``
+        (or by ``pl_bert_tpu.export``): the weights from its
+        ``model.safetensors``, the model's shape and ``max_seq_length``
+        from its ``config.yml``, as JAX's ``from_hf_export``
+        (pl_bert_tpu/models/inference.py:187) reads them."""
+        from pl_bert_tpu_torch.config import ModelParams
+
+        state_dict, config = load_pl_bert_model(model_dir)
+        fields = {f.name for f in dataclasses.fields(ModelParams)}
+        mp = ModelParams(**{k: v for k, v in config["model_params"].items() if k in fields})
+        return cls(state_dict, mp, config["dataset_params"]["max_seq_length"], **kwargs)
 
     # --- inference ----------------------------------------------------------
     def encode_batch(
@@ -279,11 +303,31 @@ class PhonemeEncoder:
         return self.fetch(self.dispatch(phoneme_strings))
 
 
+def load_encoder(parser, args, batch_size: int) -> PhonemeEncoder:
+    """The encoder a CLI asks for: ``--checkpoint`` (with an optional
+    ``--config_path``) or ``--hf_dir``, and ``--int8``, ``--buckets`` and
+    ``--device``; shared by this CLI and the server's."""
+    kwargs = {
+        "batch_size": batch_size,
+        "quantize": "int8" if args.int8 else None,
+        "seq_buckets": tuple(int(x) for x in args.buckets.split(",") if x) or None,
+        "device": args.device,
+    }
+    if args.hf_dir:
+        if args.config_path:
+            parser.error("--config_path goes with --checkpoint: an --hf_dir carries "
+                         "its own config.yml")
+        return PhonemeEncoder.from_hf_export(args.hf_dir, **kwargs)
+    return PhonemeEncoder.from_checkpoint(args.checkpoint, args.config_path, **kwargs)
+
+
 def main(argv=None) -> None:
     """Batch CLI: phoneme strings → contextual embeddings on disk::
 
         python -m pl_bert_tpu_torch.models.inference \\
             --checkpoint step_1000.pth --input phonemes.txt --output hidden.npz
+        python -m pl_bert_tpu_torch.models.inference \\
+            --hf_dir export_dir --int8 --input phonemes.txt --output hidden.npz
 
     ``--input`` is one phoneme string per line (``-`` = stdin). The
     output ``.npz`` holds ``hidden`` [N, L, H] plus ``lengths`` [N]
@@ -295,10 +339,12 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
         description="Encode phoneme strings to PL-BERT hidden states"
     )
-    parser.add_argument("--checkpoint", required=True,
-                        help="reference .pth (training save or state dict)")
+    src = parser.add_mutually_exclusive_group(required=True)
+    src.add_argument("--checkpoint", help="reference .pth (training save or state dict)")
+    src.add_argument("--hf_dir", help="directory written by pl_bert_tpu_torch.export")
     parser.add_argument("--config_path",
-                        help="training config (default: the flagship shape)")
+                        help="training config with --checkpoint (default: the "
+                        "flagship shape); an --hf_dir carries its own")
     parser.add_argument("--input", required=True,
                         help="phoneme strings, one per line ('-' = stdin)")
     parser.add_argument("--output", required=True, help="output .npz path")
@@ -307,7 +353,7 @@ def main(argv=None) -> None:
     parser.add_argument("--dtype", choices=["float32", "float16"],
                         default="float32", help="stored hidden dtype")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 dense projections (not yet ported: raises)")
+                        help="dynamic int8 dense projections (ops/quant.py)")
     parser.add_argument("--buckets", default="",
                         help="comma-separated sequence-length buckets "
                         "(e.g. 64,128,256): each chunk runs at the "
@@ -317,13 +363,7 @@ def main(argv=None) -> None:
                         "plain path)")
     args = parser.parse_args(argv)
 
-    enc = PhonemeEncoder.from_checkpoint(
-        args.checkpoint, args.config_path,
-        batch_size=args.batch_size,
-        quantize="int8" if args.int8 else None,
-        seq_buckets=tuple(int(x) for x in args.buckets.split(",") if x) or None,
-        device=args.device,
-    )
+    enc = load_encoder(parser, args, args.batch_size)
 
     fh = sys.stdin if args.input == "-" else open(args.input, encoding="utf-8")
     with fh:

@@ -5,14 +5,16 @@ and ``serve_in_thread`` are a copy of ``pl_bert_tpu/serving/server.py``
 (:61-392), over the port's own batcher and replica pool, so the port
 imports nothing of the JAX package. The routes are the same
 (``/encode``, ``/healthz``, ``/stats``, ``/metrics``, ``/reload``) with
-the same ``/stats`` and ``/metrics`` fields; ``/reload`` takes a
-reference ``.pth``. The CLI below is the port's own.
+the same ``/stats`` and ``/metrics`` fields; ``/reload`` takes what
+the server was started from: a reference ``.pth``, or an HF export
+directory (JAX server.py:458-469). The CLI below is the port's own.
 
 Run::
 
     python -m pl_bert_tpu_torch.serving.server \\
         --checkpoint step_1000.pth --port 8787 --max_batch 64 \\
         --buckets 64,128,256
+    python -m pl_bert_tpu_torch.serving.server --hf_dir export_dir --int8
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from pl_bert_tpu_torch.models.inference import PhonemeEncoder
+from pl_bert_tpu_torch.models.inference import PhonemeEncoder, load_encoder
 from pl_bert_tpu_torch.serving.batcher import DynamicBatcher, QueueFull
 from pl_bert_tpu_torch.serving.pool import ReplicaPool
 
@@ -374,10 +376,12 @@ def _parser() -> argparse.ArgumentParser:
         description="Serve PL-BERT hidden states over HTTP with dynamic "
                     "batching (PyTorch/CUDA)"
     )
-    parser.add_argument("--checkpoint", required=True,
-                        help="reference .pth (training save or state dict)")
+    src = parser.add_mutually_exclusive_group(required=True)
+    src.add_argument("--checkpoint", help="reference .pth (training save or state dict)")
+    src.add_argument("--hf_dir", help="directory written by pl_bert_tpu_torch.export")
     parser.add_argument("--config_path",
-                        help="training config (default: the flagship shape)")
+                        help="training config with --checkpoint (default: the "
+                             "flagship shape); an --hf_dir carries its own")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8787)
     parser.add_argument("--max_batch", type=int, default=64,
@@ -394,7 +398,7 @@ def _parser() -> argparse.ArgumentParser:
                         help="serve N independent replicas, one per CUDA "
                              "device (0 = one per device)")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 dense projections (not yet ported: raises)")
+                        help="dynamic int8 dense projections (ops/quant.py)")
     parser.add_argument("--buckets", default="",
                         help="comma-separated sequence-length buckets, e.g. "
                              "64,128,256 — short requests run at short "
@@ -404,7 +408,8 @@ def _parser() -> argparse.ArgumentParser:
                              "cuda; 'cpu' runs the plain path)")
     parser.add_argument("--reload_root", default=None,
                         help="directory POST /reload checkpoints must live "
-                             "under (default: the checkpoint's directory)")
+                             "under (default: the parent directory of the "
+                             "--checkpoint or --hf_dir served)")
     parser.add_argument("--reload_token", default=None,
                         help="shared secret: /reload then requires a "
                              "matching X-Reload-Token header")
@@ -423,13 +428,7 @@ def build_server(argv=None):
     built (not yet serving) HTTP server with ``/reload`` attached."""
     parser = _parser()
     args = parser.parse_args(argv)
-    enc = PhonemeEncoder.from_checkpoint(
-        args.checkpoint, args.config_path,
-        batch_size=args.max_batch,
-        quantize="int8" if args.int8 else None,
-        seq_buckets=tuple(int(x) for x in args.buckets.split(",") if x) or None,
-        device=args.device,
-    )
+    enc = load_encoder(parser, args, args.max_batch)
     if args.replicas == 1:
         _warm(enc)
         server = make_server(
@@ -449,17 +448,20 @@ def build_server(argv=None):
         for replica in pool.encoders:
             _warm(replica)
         server = make_pool_server(pool, args.host, args.port)
+    source = args.checkpoint or args.hf_dir
     attach_reload(
-        server, PhonemeEncoder.checkpoint_encoder_params,
-        root=args.reload_root or os.path.dirname(os.path.realpath(args.checkpoint)),
+        server,
+        PhonemeEncoder.hf_encoder_params if args.hf_dir
+        else PhonemeEncoder.checkpoint_encoder_params,
+        root=args.reload_root or os.path.dirname(os.path.realpath(source)),
         token=args.reload_token,
     )
-    server.RequestHandlerClass.model_info["checkpoint"] = args.checkpoint
+    server.RequestHandlerClass.model_info["checkpoint"] = source
     server.banner = (  # type: ignore[attr-defined]
         f"serving on http://{args.host}:{server.server_address[1]} "
         f"(max_batch {args.max_batch}, max_wait {args.max_wait_ms} ms, "
         f"buckets {enc.seq_buckets}, replicas {args.replicas}, "
-        f"device {enc.device})"
+        f"device {enc.device}, quantize {enc.cfg.quantize})"
     )
     return server
 

@@ -25,8 +25,9 @@ model (the grapheme head, its token ids carried to the card and its
 spec, a memory-mapped packed store (``data/packed_store.py``, written by
 ``python -m pl_bert_tpu_torch.preprocess.pipeline --stage pack``), a
 ``records.jsonl`` directory, an HF ``save_to_disk`` directory or an HF
-hub id (``datasets`` is imported only for the last two). The mesh,
-ZeRO-1, multi-host initialisation and remat are not ported yet and raise
+hub id (``datasets`` is imported only for the last two).
+``remat: true`` recomputes each layer application in the backward. The
+mesh, ZeRO-1 and multi-host initialisation are not ported yet and raise
 (``train_step.check_ported``); ``prng_impl`` is read and ignored.
 
 Run: ``python -m pl_bert_tpu_torch.training.train --config_path
@@ -354,7 +355,8 @@ class Trainer:
             config.dataset_params,
         )
 
-        self.model = init_params(build_model(mp, tp.mixed_precision), seed=tp.seed)
+        self.model = init_params(build_model(mp, tp.mixed_precision, remat=tp.remat),
+                                 seed=tp.seed)
         self.model.to(self.device)
         self.tx = make_optimizer(tp)
         self.use_token_ids = mp.num_token_vocab > 0

@@ -37,8 +37,9 @@ layer application, as host ints, so a step is reproducible, reading a
 seed never syncs the device, and one seed list drives every attention
 path.
 
-Not ported yet — each raises where asked for: ``remat`` and more than
-one device (see :func:`check_ported`).
+``training_params.remat`` is the model's (``models/albert.py``: each
+layer application recomputed in the backward). Not ported yet, and
+raising where asked for: more than one device (see :func:`check_ported`).
 """
 
 from __future__ import annotations
@@ -64,10 +65,6 @@ def check_ported(config) -> None:
     """Raise ``NotImplementedError`` for a config whose training path is
     not ported yet."""
     tp = config.training_params
-    if tp.remat:
-        raise NotImplementedError(
-            "training_params.remat: true (recomputing the encoder's activations in the "
-            "backward) is not yet ported to pl_bert_tpu_torch")
     if (tp.data_axis, tp.model_axis) not in ((1, 1), (-1, 1)):
         raise NotImplementedError(
             f"data_axis {tp.data_axis} / model_axis {tp.model_axis}: more than one device "

@@ -617,3 +617,20 @@ def test_add_copy_kernel_ragged_and_unaligned(dev, dtype, case):
         x, res = x[1:], res[1:]
     x, res = x.view(1001, 769), res.view(1001, 769)
     assert torch.equal(fused_ln.add_copy(x, res), fused_ln.add_copy_plain(x, res))
+
+
+@pytest.mark.parametrize("M,K,N", [(3, 20, 36), (8, 768, 768), (4096, 768, 2048)])
+def test_int8_matmul_matches_the_fp64_product(dev, M, K, N):
+    """``torch._int_mm`` on the padded operands (M ≤ 16, K and N not
+    multiples of 8 among them) against the exact fp64 product, bit for
+    bit, counted once a call."""
+    from pl_bert_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(M + K + N)
+    a, b = (torch.from_numpy(rng.integers(-127, 128, s).astype(np.int8)).to(dev)
+            for s in ((M, K), (N, K)))
+    before = quant.LAUNCHES.count
+    acc = quant.int8_matmul(a, b)
+    assert quant.LAUNCHES.count == before + 1
+    assert acc.dtype == torch.int32 and acc.shape == (M, N)
+    assert torch.equal(acc, quant.int8_matmul_plain(a, b))

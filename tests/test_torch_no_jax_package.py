@@ -1,11 +1,13 @@
 """The port stands alone: in a fresh interpreter where importing ``jax``,
-``flax``, ``orbax`` or the JAX package ``pl_bert_tpu`` raises, every
-module of ``pl_bert_tpu_torch`` and every module ``chip_smoke.py``
-imports load, the port's HTTP server builds on the CPU and answers a
-request, the port's Trainer runs a packed run and resumes it, a
-multi-task run trains and ``training/evaluate.py`` scores it, and a
-corpus goes through the pack CLI, ``verify_store`` and the elastic
-launcher into a Trainer run from the packed store."""
+``flax``, ``orbax``, the JAX package ``pl_bert_tpu``, ``transformers``
+or ``safetensors`` raises, every module of ``pl_bert_tpu_torch`` and
+every module ``chip_smoke.py`` imports load, the port's HTTP server
+builds on the CPU and answers a request, the port's Trainer runs a
+packed run and resumes it, a multi-task run trains and
+``training/evaluate.py`` scores it, a corpus goes through the pack CLI,
+``verify_store`` and the elastic launcher into a Trainer run from the
+packed store, and a checkpoint goes through the export CLI into
+``from_hf_export`` and an int8 forward."""
 
 import ast
 import subprocess
@@ -20,7 +22,8 @@ import importlib.abc, sys
 class _Blocked(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "flax", "orbax", "pl_bert_tpu"):
+        if top in ("jax", "jaxlib", "flax", "orbax", "pl_bert_tpu", "transformers",
+                   "safetensors"):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -67,7 +70,9 @@ def test_every_port_module_and_smoke_import_loads_without_the_jax_package(tmp_pa
                 "training.checkpoint", "training.metrics", "training.train", "utils.profiler",
                 "tools.bench_fused_ln", "training.evaluate", "ops.masked_ce",
                 "data.packed_store", "data.verify_store", "preprocess.shard_engine",
-                "preprocess.pipeline", "training.orchestrate", "runtime"):
+                "preprocess.pipeline", "training.orchestrate", "runtime",
+                "export.safetensors", "export.to_hf", "export.cli", "ops.quant",
+                "serving.client"):
         assert f"pl_bert_tpu_torch.{new}" in mods, new
     assert "pl_bert_tpu_torch.training.train" in smoke
     assert "pl_bert_tpu_torch.tools" in smoke or "pl_bert_tpu_torch.tools.bench_fused_ln" in smoke
@@ -77,7 +82,7 @@ def test_every_port_module_and_smoke_import_loads_without_the_jax_package(tmp_pa
         "try:\n    import pl_bert_tpu\nexcept ImportError:\n    print('blocked')\n"
         f"for m in {mods + smoke!r}:\n    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'orbax', 'pl_bert_tpu'))\n"
+        "('jax', 'flax', 'orbax', 'pl_bert_tpu', 'transformers', 'safetensors'))\n"
         "assert not bad, bad\nprint('ok')\n",
         tmp_path,
     )
@@ -224,3 +229,36 @@ print("launched")
 '''
     out = _run(code, tmp_path)
     assert "OK (full scan)" in out and out.split()[-1] == "launched"
+
+
+def test_export_and_int8_serving_without_the_jax_package_or_transformers(tmp_path):
+    code = f'''
+import numpy as np, torch
+from pl_bert_tpu_torch.config import Config
+from pl_bert_tpu_torch.export import cli
+from pl_bert_tpu_torch.models.albert import build_model, init_params
+from pl_bert_tpu_torch.models.inference import PhonemeEncoder
+
+cfg = Config.from_dict({{"model_params": dict(
+    hidden_size=128, num_attention_heads=2, intermediate_size=256,
+    max_position_embeddings=64, num_hidden_layers=2, embedding_size=32),
+    "dataset_params": {{"max_seq_length": 64}}}})
+cfg.save({str(tmp_path / "cfg.yml")!r})
+model = init_params(build_model(cfg.model_params, "fp32"), seed=0)
+torch.save({{"net": model.state_dict(), "step": 5, "epoch": 0}}, {str(tmp_path / "step_5.pth")!r})
+out = cli.main(["--checkpoint_path", {str(tmp_path / "step_5.pth")!r}, "--config_path",
+                {str(tmp_path / "cfg.yml")!r}, "--output_dir", {str(tmp_path / "hf")!r}])
+hf = PhonemeEncoder.from_hf_export(out, device="cpu", mixed_precision="fp32")(["qalam"])[0]
+pth = PhonemeEncoder.from_checkpoint({str(tmp_path / "step_5.pth")!r}, cfg, device="cpu",
+                                     mixed_precision="fp32")(["qalam"])[0]
+assert np.array_equal(hf, pth)
+q = PhonemeEncoder.from_hf_export(out, device="cpu", quantize="int8")
+assert q.weights["encoder"]["mapping"]["wq"].dtype == torch.int8
+h, n = q(["qalam"])
+assert np.isfinite(h).all() and n[0] == 5
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "flax", "orbax", "pl_bert_tpu", "transformers", "safetensors"))
+assert not bad, bad
+print("exported")
+'''
+    assert _run(code, tmp_path).split()[-1] == "exported"

@@ -5,6 +5,7 @@ jax."""
 import subprocess
 import sys
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -224,9 +225,76 @@ def test_cuda_default_raises_without_gpu(params):
         PhonemeEncoder(state_dict_from_jax(params), MP, MAX_LEN)
 
 
-def test_int8_not_yet_ported(params):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _port(params, quantize="int8")
+def test_port_client_roundtrip_and_metrics(params):
+    """The port's copy of ``ServingClient`` against the port's server, as
+    tests/test_serving.py::test_client_roundtrip_and_metrics holds JAX's."""
+    import urllib.request
+
+    from pl_bert_tpu_torch.serving import server as port_server
+    from pl_bert_tpu_torch.serving.client import ServingClient as PortClient
+
+    enc = _port(params)
+    server = port_server.make_server(enc, port=0, max_wait_ms=20.0)
+    port_server.serve_in_thread(server)
+    client = PortClient(f"http://127.0.0.1:{server.server_address[1]}", timeout_s=60.0)
+    try:
+        assert client.healthz()["hidden_size"] == MP.hidden_size
+        direct_h, direct_l = enc(["qalam"])
+        hidden, length = client.encode("qalam")
+        assert length == int(direct_l[0])
+        np.testing.assert_allclose(hidden, direct_h[0, :direct_l[0]], atol=1e-5)
+        hidden, length = client.encode("qalam", encoding="b64")
+        np.testing.assert_array_equal(hidden, direct_h[0, :direct_l[0]])
+        results = client.encode(["ab", "bajt ʃams"], round_decimals=4)
+        assert [r[1] for r in results] == [2, len("bajt ʃams")]
+        assert results[0][0].shape == (2, MP.hidden_size)
+        stats = client.stats()
+        assert stats["requests"] >= 4
+        with urllib.request.urlopen(client.base_url + "/metrics", timeout=10) as r:
+            assert r.headers["Content-Type"].startswith("text/plain")
+            text = r.read().decode()
+        assert f"plbert_requests_total {stats['requests']}" in text
+        assert "plbert_rejected_total 0" in text
+    finally:
+        client.close()
+        server.shutdown()
+        server.batcher.close()
+        server.server_close()
+
+
+def test_port_client_error_mapping(params):
+    from pl_bert_tpu_torch.serving import server as port_server
+    from pl_bert_tpu_torch.serving.client import ServerOverloaded, ServingError
+    from pl_bert_tpu_torch.serving.client import ServingClient as PortClient
+
+    server = port_server.make_server(_port(params), port=0, max_wait_ms=0.0, max_pending=1)
+    real = server.batcher._encode_fn
+    server.batcher._encode_fn = lambda texts: (time.sleep(0.3), real(texts))[1]
+    port_server.serve_in_thread(server)
+    client = PortClient(f"http://127.0.0.1:{server.server_address[1]}")
+    try:
+        with pytest.raises(ServingError, match="non-empty"):
+            client.encode([])
+        overloaded = []
+
+        def hammer(i):
+            try:
+                client.encode(f"t{i}")
+            except ServerOverloaded as e:
+                overloaded.append(e)
+
+        threads = [threading.Thread(target=hammer, args=(i,)) for i in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert overloaded and overloaded[0].retry_after_s >= 1.0
+        assert overloaded[0].status == 503
+    finally:
+        server.shutdown()
+        server.batcher.close()
+        server.server_close()
 
 
 def test_npz_cli_on_cpu(params, tmp_path):

@@ -186,3 +186,12 @@ def test_head_cost_at_the_production_shape():
     assert nbytes == 2 * 13824 * 768 * 2 + 2 * (60000 * 768 + 60000) * 4 + 96 * 512 * 5
     ms, by = smoke.bound_ms(flops, nbytes)
     assert by == "operations" and ms == pytest.approx(3.8646, rel=1e-3)
+
+
+def test_int8_bound_at_the_ffn_shape():
+    """Phase 20 e's int8 dense [4096, 768] x [2048, 768]ᵀ: bf16 input and
+    output, int8 weight, read and written once (24.6 MB at 3.35 TB/s)
+    against 12.9 G int8 operations at 1979 TOP/s; the bytes bound it."""
+    nbytes = 4096 * 768 * 2 + 2048 * 768 + 4096 * 2048 * 2
+    assert smoke.int8_bound(4096, 768, 2048) == pytest.approx(nbytes / 3.35e12 * 1e3)
+    assert 2 * 4096 * 768 * 2048 / 1979e12 * 1e3 < nbytes / 3.35e12 * 1e3

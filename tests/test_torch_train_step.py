@@ -189,20 +189,19 @@ def test_dropout_steps_reproducible_and_pooler_not_decayed(batches, jax_params):
 
 
 @pytest.mark.parametrize("section,key", [
-    ("training_params", "model_axis"), ("training_params", "remat"),
+    ("training_params", "model_axis"),
 ])
 def test_not_yet_ported_raises(section, key, tmp_path):
-    """What still waits raises: more than one device, remat (accepted and
-    ignored would keep the values but not the peak memory JAX's
-    ``nn.remat`` gives). On-device masking, sequence packing, the
-    multi-task head and a packed store directory are ported and pass."""
+    """What still waits raises: more than one device. On-device masking,
+    sequence packing, the multi-task head, a packed store directory and
+    remat are ported and pass."""
     (tmp_path / "packed_meta.json").write_text("{}")
-    value = {"model_axis": 2, "remat": True}[key]
+    value = {"model_axis": 2}[key]
     cfg = Config.from_dict({section: {key: value}})
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ts.check_ported(cfg)
     ts.check_ported(Config.from_dict(
-        {"training_params": {"training_dataset": str(tmp_path)},
+        {"training_params": {"training_dataset": str(tmp_path), "remat": True},
          "dataset_params": {"ondevice_masking": True, "sequence_packing": True},
          "model_params": {"num_token_vocab": 8}}))
 
