@@ -2,7 +2,8 @@
 """Drive the PyTorch port's serving path, its training step, its Trainer
 entry point, its multi-task pretraining run (from memory, then from a
 packed store under restart supervision), its deployment path (HF export,
-``--hf_dir`` loading, int8 serving) and remat once on one CUDA card.
+``--hf_dir`` loading, int8 serving), remat and its sharded step (data,
+tensor and sequence parallelism, ZeRO-1) once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -189,11 +190,42 @@ with random weights made from a fixed seed, in order:
    same weights, batches and seeds: losses and grad norms within phase
    13's gates (it prints whether bitwise), launches a step with remat K3
    24, K4 12, K5 48, K6 24, peak device memory and ms a step of both; then
-   2 steps on the flash path with remat (K7 24 a step) against 2 without.
+   2 steps on the flash path with remat (K7 24 a step) against 2 without;
+22. the sharded step (``parallel/``):
+   a. K1/K3 writing a tensor-parallel shard's fp32 partial output at
+      [8, 512, 768] with 6 heads of 64 (P = 384), bf16, dropout 0 and
+      0.1, against their plain versions (K1 bitwise K3, and K3's fp32
+      output rounding to its bf16 one bit for bit); K4 from K3's saved
+      tensors; K3 at P = 192 (3 heads); K7/K8 on a rank's 6 heads
+      ([8, 512, 6, 64]) and K5/K6 on its rows under SP ([2048, 768]), with
+      rank 1's shard seeds, dropout 0 and 0.1; K1/K3/K4 each timed at P =
+      384 beside its plain version, a library call and its bound; the
+      FFN's row-parallel layer (one bf16 GEMM writing fp32) at M = 4096
+      and 49152 against the fp32 GEMM and its bound;
+   b. the Trainer in a NCCL world of one (``PLBERT_DISTRIBUTED=1``) on
+      bench.py's workload (B 96, L 512, bf16, dropout 0.1, block path), 4
+      steps, against the run without: losses within phase 13's gates, ms
+      a step of both;
+   c. two ranks on the one card over gloo (``PLBERT_DIST_BACKEND=gloo``:
+      NCCL refuses two ranks on one device), each a process running
+      ``training.train.train()`` at the flagship width, L 512, global
+      batch 8, bf16, dropout 0, 4 steps: data 2, data 2 with zero1, model
+      2 on the block path, with SP, and on the flash path, each within
+      phase 13's gates of one rank on the same weights and batches (zero1
+      also against data 2, printed whether bitwise); each rank's launches
+      (K3 12, K4 12, K5 24, K6 24 a step on the block path; K7 12, K8 12
+      on the flash path), local heads, ms a step, peak memory and the
+      replicated parameters bitwise equal across the model ranks; the
+      one-rank runs' ms a step, timed alike (each step between two
+      synchronisations), beside them;
+   d. the multi-task model at model 2 (head of 60,000, fused, capacity
+      144, dropout 0.1, 2 steps): finite losses, the head bitwise equal
+      across the ranks.
 
 Any failure raises and exits non-zero. The line before the last is a
 JSON record of the kernels (its ``launches_by_path`` also counts them on
-the deployment and the remat path); the last line is
+the deployment and the remat path, and on rank 0 of 22 c's model 2 + SP
+run); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -201,6 +233,7 @@ checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import base64
+import contextlib
 import dataclasses
 import http.client
 import io
@@ -443,6 +476,30 @@ def hold(results: dict, kernel: str, label: str, out, ref, tol: dict) -> None:
     err = errors(out, ref)
     results[kernel].append(err["max_abs"])
     gate(label, err, tol)
+
+
+def hold_ulp(results: dict, kernel: str, label: str, out, ref, tol: dict) -> None:
+    """``hold`` for a bf16 output whose plain version may round it one ulp
+    the other way at any magnitude (K4's dx and dqkv, each one rounding of
+    differently ordered fp32 sums): every element within ``tol``'s
+    max_abs or one bf16 ulp of the reference (2^-7 of its magnitude),
+    whichever is larger, and rel-L2 within ``tol``'s."""
+    if not out.isfinite().all():
+        raise AssertionError(f"{label}: non-finite")
+    o, r = out.float(), ref.float()
+    diff = (o - r).abs()
+    err = errors(out, ref)
+    results[kernel].append(err["max_abs"])
+    ulp = r.abs() * 2.0**-7
+    beyond = diff > tol["max_abs"]
+    ulps = float((diff[beyond] / ulp[beyond]).max()) if beyond.any() else 0.0
+    ok = bool((diff <= ulp.clamp_min(tol["max_abs"])).all()) and err["rel_l2"] <= tol["rel_l2"]
+    log(f"  {label}: max_abs {err['max_abs']:.3e} rel_l2 {err['rel_l2']:.3e} (tol "
+        f"{tol['max_abs']:.1e} or one bf16 ulp / {tol['rel_l2']:.1e}; {int(beyond.sum())} "
+        f"elements past {tol['max_abs']:.1e}, the largest {ulps:.2f} ulp of its value) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} outside tolerance: {err} vs {tol} or one ulp")
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -2860,6 +2917,564 @@ def phase_remat(torch, smi: str) -> dict:
             "launches": on["launches"], "wall_s": wall}
 
 
+# the sharded runs of phase 22 c/d: the flagship model (configs/config.yml
+# widths, 12 applications), L 512, global batch 8, bf16; {out}, {steps},
+# {data}, {model}, {zero1}, {impl}, {sp}, {dropout} and {extra} filled in
+SHARDED_CONFIG = """\
+training_params:
+  output_dir: {out}
+  mixed_precision: bf16
+  batch_size: {batch}
+  save_interval: 100
+  log_interval: 1
+  num_steps: {steps}
+  data_axis: {data}
+  model_axis: {model}
+  zero1: {zero1}
+  training_dataset: "synthetic:{samples}"
+{extra}dataset_params:
+  max_seq_length: 512
+  ondevice_masking: true
+model_params:
+  attention_impl: {impl}
+  dropout: {dropout}
+  sequence_parallel: {sp}
+{model_extra}"""
+# 22 c's runs: name → (data, model, zero1, attention_impl, sequence_parallel)
+SHARDED_RUNS = {
+    "data 2": (2, 1, False, "auto", False),
+    "data 2, zero1": (2, 1, True, "auto", False),
+    "model 2": (1, 2, False, "auto", False),
+    "model 2, SP": (1, 2, False, "auto", True),
+    "model 2, flash": (1, 2, False, "pallas", False),
+}
+
+
+def sharded_config(path: str, out: str, data: int = 1, model: int = 1, zero1: bool = False,
+                   impl: str = "auto", sp: bool = False, steps: int = 4, batch: int = 8,
+                   dropout: float = 0.0, samples: int = 200, multitask: bool = False) -> str:
+    extra = model_extra = ""
+    if multitask:  # bench.py run_production's head: 60,000, fused, capacity 144
+        extra = "  fused_lm_head: true\n  lm_head_capacity: 144\n"
+        model_extra = "  num_token_vocab: 60000\n"
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(SHARDED_CONFIG.format(
+            out=out, steps=steps, batch=batch, data=data, model=model,
+            zero1=str(zero1).lower(), samples=samples, extra=extra, impl=impl,
+            dropout=dropout, sp=str(sp).lower(), model_extra=model_extra))
+    return path
+
+
+@contextlib.contextmanager
+def timed_steps(torch):
+    """Inside it, each ``training.train.Trainer`` made times its steps,
+    each between two synchronisations of the card (``step_s``); yields
+    the list the trainers are appended to."""
+    from pl_bert_tpu_torch.training import train as train_mod
+
+    trainers, base = [], train_mod.Trainer
+
+    class Timed(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            trainers.append(self)
+            step, self.step_s = self.train_step, []
+
+            def timed(state, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(state, batch)
+                torch.cuda.synchronize()
+                self.step_s.append(time.perf_counter() - t0)
+                return out
+
+            self.train_step = timed
+
+    train_mod.Trainer = Timed
+    try:
+        yield trainers
+    finally:
+        train_mod.Trainer = base
+
+
+def median_step_ms(step_s: list) -> float:
+    """The median of a run's step times past its first, in ms."""
+    ms = sorted(t * 1e3 for t in step_s[1:])
+    return ms[len(ms) // 2]
+
+
+def sharded_rank(spec: dict) -> None:
+    """One rank of a 22 c/d run (this script run with ``--sharded-rank``):
+    ``training.train.train()`` on the card over gloo, then what the parent
+    checks, as JSON in ``spec["result"]``: the launch counts, the local
+    head count, ms a step (each step timed between two synchronisations),
+    the peak device memory and a digest of each replicated parameter."""
+    import hashlib
+
+    os.environ.update(PLBERT_DISTRIBUTED="1", PLBERT_COORDINATOR=f"localhost:{spec['port']}",
+                      PLBERT_NUM_PROCESSES=str(spec["world"]),
+                      PLBERT_PROCESS_ID=str(spec["rank"]), PLBERT_DIST_BACKEND="gloo")
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as dist
+
+    from pl_bert_tpu_torch.parallel.mesh import param_spec
+    from pl_bert_tpu_torch.training.train import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with timed_steps(torch) as trainers:
+        counters = reset_counters()  # this rank's run starts here
+        final = train({"config_path": spec["config"], "run_name": spec["run"], "device": DEV})
+        launches = read_counters(counters)  # and ends here
+    trainer = trainers[0]
+    digests = {n: hashlib.sha256(p.detach().float().cpu().numpy().tobytes()).hexdigest()
+               for n, p in trainer.model.named_parameters() if param_spec(n) is None}
+    with open(spec["result"], "w", encoding="utf-8") as f:
+        json.dump({"final": final, "launches": launches,
+                   "local_heads": trainer.model.cfg.local_heads,
+                   "step_s": trainer.step_s,
+                   "peak": torch.cuda.max_memory_allocated(), "digests": digests}, f)
+    dist.destroy_process_group()
+
+
+def run_ranks(config: str, run: str, world: int, workdir: str) -> list[dict]:
+    """A 22 c/d run: one process a rank, all on the one card."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs, results, logs = [], [], []
+    for rank in range(world):
+        spec = {"config": config, "run": run, "world": world, "rank": rank, "port": port,
+                "result": os.path.join(workdir, f"{run}.rank{rank}.json")}
+        logs.append(os.path.join(workdir, f"{run}.rank{rank}.log"))
+        with open(logs[-1], "w", encoding="utf-8") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--sharded-rank",
+                 json.dumps(spec)], cwd=HERE, stdout=f, stderr=subprocess.STDOUT))
+        results.append(spec["result"])
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (code, path) in enumerate(zip(codes, logs)):
+        if code:
+            with open(path, encoding="utf-8") as f:
+                log(f.read()[-6000:])
+            raise AssertionError(f"{run}: rank {rank} exited {code}")
+    out = []
+    for path in results:
+        with open(path, encoding="utf-8") as f:
+            out.append(json.load(f))
+    return out
+
+
+def metrics_steps(run_dir: str) -> list[dict]:
+    with open(os.path.join(run_dir, "metrics.jsonl"), encoding="utf-8") as f:
+        return [r for r in map(json.loads, f) if "grad_norm" in r]
+
+
+def compare_runs(got: list[dict], want: list[dict], label: str) -> bool:
+    """Losses and grad norms within TRAIN_TOL of ``want``'s; whether bitwise."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} steps against {len(want)}")
+    worst = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(got, want))
+             for k in TRAIN_TOL}
+    bitwise = all(a[k] == b[k] for a, b in zip(got, want) for k in TRAIN_TOL)
+    ok = all(worst[k] <= TRAIN_TOL[k] for k in TRAIN_TOL) and all(
+        np_isfinite(a[k]) for a in got for k in TRAIN_TOL)
+    log(f"  {label}: largest relative difference loss {worst['loss']:.2e}, grad_norm "
+        f"{worst['grad_norm']:.2e} (gates {TRAIN_TOL['loss']:.0e}, "
+        f"{TRAIN_TOL['grad_norm']:.0e}); bitwise: {bitwise} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: off the reference run: {worst}")
+    return bitwise
+
+
+def np_isfinite(v: float) -> bool:
+    return v == v and abs(v) != float("inf")
+
+
+def phase_sharded_kernels(torch, results: dict, smi: str) -> dict:
+    """22 a. K1/K3 with the fp32 output of a tensor-parallel shard at
+    [8, 512, 768] with 6 heads of 64 (P = 384), bf16, at dropout 0 and 0.1,
+    against their plain versions; K4 from those saved tensors; K3 at P =
+    192, forward only; then each timed at P = 384 beside its plain version,
+    its library call and its bound."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from pl_bert_tpu_torch.models.albert import attention_bias_from_mask
+    from pl_bert_tpu_torch.ops import attention_block as ab
+    from pl_bert_tpu_torch.ops.attention import NEG
+
+    rng = np.random.default_rng(SEED + 22)
+    B, L, E, dt, f32 = 8, 512, 768, torch.bfloat16, torch.float32
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(DEV)  # noqa: E731
+    lengths = np.array([512, 480, 384, 256, 128, 64, 5, 0])
+    bias_row, _ = ab.rows(attention_bias_from_mask(to(np.arange(L)[None, :] < lengths[:, None])),
+                          None, B, L)
+    x = to(rng.standard_normal((B, L, E)) * 0.5).to(dt)
+    dout = to(rng.standard_normal((B, L, E))).to(dt)
+    zero = torch.zeros(E, device=DEV)
+    log(f"phase 22 a: K1/K3 writing the fp32 partial output of a tensor-parallel shard "
+        f"(6 heads of 64, P = 384; zero output bias), [{B}, {L}, {E}] bf16, against their "
+        "plain versions; K4 from K3's saved tensors; K3 at P = 192 (3 heads)")
+    weights = {}
+    for heads in (6, 3):
+        P = 64 * heads
+        wqkv = to(rng.standard_normal((E, 3 * P)) * 0.05).to(dt)
+        bqkv = to(rng.standard_normal(3 * P) * 0.02)
+        wo = to(rng.standard_normal((P, E)) * 0.05).to(dt)
+        weights[heads] = (wqkv, bqkv, wo)
+        for rate in ((0.0, 0.1) if heads == 6 else (0.0,)):
+            seed = 4321 if rate else None
+            keep = ab.dropout_mask(seed, rate, B, heads, L, DEV) if rate else None
+            tag = f"P = {P} dropout {rate}"
+            out, saved = ab.train_forward(x, wqkv, bqkv, wo, zero, heads, bias_row, None, rate,
+                                          seed, out_dtype=f32)
+            ref, ref_saved = ab.train_forward_plain(x, wqkv, bqkv, wo, zero, heads, bias_row,
+                                                    None, rate, seed, keep=keep, out_dtype=f32)
+            if out.dtype != f32:
+                raise AssertionError(f"K3 wrote {out.dtype}, not float32")
+            for name, a, r in [("out (fp32)", out, ref), ("qkv", saved[0], ref_saved[0]),
+                               ("ctx", saved[1], ref_saved[1])]:
+                hold(results, "attention_block_train", f"K3 {name} {tag}", a, r,
+                     TOL["bfloat16"])
+            rounded, _ = ab.train_forward(x, wqkv, bqkv, wo, zero, heads, bias_row, None, rate,
+                                          seed)
+            if not torch.equal(out.to(dt), rounded):
+                raise AssertionError(f"K3's fp32 output does not round to its bf16 one ({tag})")
+            log(f"  K3's fp32 output rounded to bf16 == its bf16 output bitwise ({tag})")
+            if heads == 3:
+                continue
+            light = ab.attention_block_packed(x, wqkv, bqkv, wo, zero, heads,
+                                              bias=attention_bias_from_mask(
+                                                  to(np.arange(L)[None, :] < lengths[:, None])),
+                                              out_dtype=f32, dropout_rate=rate,
+                                              dropout_seed=seed)
+            if not torch.equal(light, out):
+                raise AssertionError(f"K1's fp32 output is not K3's ({tag})")
+            results["attention_block"].append(errors(light, ref)["max_abs"])
+            log(f"  K1 fp32 output == K3 fp32 output bitwise ({tag})")
+            dx, dqkv = ab.train_backward(dout, x, wqkv, wo, saved, heads, bias_row, None, rate,
+                                         seed)
+            rdx, rdqkv = ab.train_backward_plain(dout, x, wqkv, wo, saved, heads, bias_row,
+                                                 None, rate, seed, keep=keep)
+            x2, d2 = x.reshape(B * L, E).float(), dout.reshape(B * L, E).float()
+            for name, a, r in [("dx", dx, rdx), ("dqkv", dqkv, rdqkv)]:
+                hold_ulp(results, "attention_block_bwd", f"K4 {name} {tag}", a, r,
+                         TOL["bfloat16"])
+            for name, a, r in [
+                ("dWqkv", x2.T @ dqkv.float(), x2.T @ rdqkv.float()),
+                ("dWo", saved[1].float().T @ d2, ref_saved[1].float().T @ d2),
+            ]:
+                hold(results, "attention_block_bwd", f"K4 {name} {tag}", a, r,
+                     TOL_GRAD["bfloat16"])
+            del saved, ref_saved, keep, dx, dqkv, rdx, rdqkv
+
+    hold_sharded_rows(torch, results, rng, bias_row, smi)
+    rowpar = time_row_parallel(torch, rng, smi)
+
+    # timed at P = 384, dropout 0.1, beside the plain versions and one
+    # library call each: cuBLAS and SDPA over the shard's 6 heads, the
+    # out-projection in fp32 (bf16 operands; speed reference only)
+    wqkv, bqkv, wo = weights[6]
+    H, P, rate, seed = 6, 384, 0.1, 7
+    keep = ab.dropout_mask(seed, rate, B, H, L, DEV)
+    bias4 = attention_bias_from_mask(to(np.arange(L)[None, :] < lengths[:, None]))
+    times = {
+        "attention_block": a_b(
+            torch,
+            lambda: ab.attention_block_plain(x, wqkv, bqkv, wo, zero, H, bias=bias4,
+                                             out_dtype=f32),
+            lambda: ab.attention_block_packed(x, wqkv, bqkv, wo, zero, H, bias=bias4,
+                                              out_dtype=f32), iters=5),
+        "attention_block_train": a_b(
+            torch,
+            lambda: ab.train_forward_plain(x, wqkv, bqkv, wo, zero, H, bias_row, None, rate,
+                                           seed, keep=keep, out_dtype=f32),
+            lambda: ab.train_forward(x, wqkv, bqkv, wo, zero, H, bias_row, None, rate, seed,
+                                     out_dtype=f32), iters=5),
+    }
+    _, saved = ab.train_forward(x, wqkv, bqkv, wo, zero, H, bias_row, None, rate, seed,
+                                out_dtype=f32)
+    times["attention_block_bwd"] = a_b(
+        torch,
+        lambda: ab.train_backward_plain(dout, x, wqkv, wo, saved, H, bias_row, None, rate, seed,
+                                        keep=keep),
+        lambda: ab.train_backward(dout, x, wqkv, wo, saved, H, bias_row, None, rate, seed),
+        iters=5)
+    xg = x.detach().requires_grad_()
+    ws = [t.detach().requires_grad_() for t in (wqkv, bqkv.to(dt), wo)]
+    attn_bias = bias_row.clamp(min=NEG).to(dt)[:, None, None, :]
+
+    def stock(p):
+        qkv = F.linear(xg, ws[0].T, ws[1])
+        q, k, v = qkv.view(B, L, 3, H, 64).permute(2, 0, 3, 1, 4)
+        ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_bias, dropout_p=p)
+        return ctx.transpose(1, 2).reshape(B * L, P).float() @ ws[2].float()
+
+    library = {"attention_block": time_ms(torch, lambda: stock(0.0), 5),
+               "attention_block_train": time_ms(torch, lambda: stock(rate), 5)}
+    stock_out = stock(rate)
+    library["attention_block_bwd"] = time_ms(
+        torch, lambda: torch.autograd.grad(stock_out, [xg, *ws], dout.reshape(B * L, E).float(),
+                                           retain_graph=True), 5)
+    del stock_out, saved, keep
+    # bounds: the shard's products, its inputs read once and its fp32
+    # output written once (block_cost counts the output at the compute
+    # dtype's 2 bytes: 4·M·E more here)
+    M = B * L
+    bounds = {}
+    for name, kind in (("attention_block", "light"), ("attention_block_train", "train")):
+        cost = block_cost(B, L, E, P, 2, kind)
+        cost["bytes"] += 2 * M * E
+        bounds[name] = block_bound(cost)
+    bounds["attention_block_bwd"] = block_bound(block_cost(B, L, E, P, 2, "backward"))
+    for name, (k, p) in times.items():
+        log(f"  {name} P = {P} [{B}, {L}, {E}] bf16 (fp32 out for K1/K3; K1 dropout 0, K3/K4 "
+            f"dropout {rate}): kernel {k:.4f} ms, plain {p:.4f} ms, library "
+            f"{library[name]:.4f} ms, bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) "
+            f"({smi})")
+    torch.cuda.empty_cache()
+    return {"times": times, "library": library, "bounds": bounds, "row_parallel": rowpar}
+
+
+def hold_sharded_rows(torch, results: dict, rng, bias_row, smi: str) -> None:
+    """22 a. The flash path's kernels at a model rank's shapes: K7/K8 on
+    its 6 heads ([8, 512, 6, 64], q/k/v views of one [B, L, 3·384]
+    projection, the model's layout), and K5/K6 (through their autograd
+    Function) on its rows under sequence parallelism ([B·L/2, 768]), bf16,
+    at dropout 0 and 0.1 with model rank 1's shard seeds of a 1×2 mesh,
+    against their plain versions at phases 11 and 14's bf16 gates."""
+    import numpy as np
+
+    from pl_bert_tpu_torch.ops import attention_block as ab
+    from pl_bert_tpu_torch.ops import flash_attention as fa
+    from pl_bert_tpu_torch.ops import fused_ln
+    from pl_bert_tpu_torch.parallel import tp
+
+    B, L = bias_row.shape
+    H, D, E, N, dt = 6, 64, 768, bias_row.numel() // 2, torch.bfloat16
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(DEV)  # noqa: E731
+    log(f"  K7/K8 at [{B}, {L}, {H}, {D}] and K5/K6 at [{N}, {E}] (a model rank's heads, and "
+        "its rows under sequence parallelism), bf16, model rank 1's seeds of a 1x2 mesh, "
+        "against their plain versions")
+    qkv = to(rng.standard_normal((B, L, 3 * H * D)) * 0.7).to(dt)
+    q, k, v = (t.reshape(B, L, H, D) for t in qkv.split(H * D, dim=-1))
+    dout = to(rng.standard_normal((B, L, H, D))).to(dt)
+    x, res, dy = (to(rng.standard_normal((N, E))).to(dt) for _ in range(3))
+    gamma, beta = to(1 + 0.1 * rng.standard_normal(E)), to(0.1 * rng.standard_normal(E))
+    offset = tp.shard_seed_offset(0, 1, 2)
+    for rate in (0.0, 0.1):
+        tag = f"dropout {rate}"
+        seed = tp.shard_seed(977, offset) if rate else None
+        keep = ab.dropout_mask(seed, rate, B, H, L, DEV) if rate else None
+        out = fa.flash_attention_fwd(q, k, v, bias_row, None, rate, seed)
+        grads = fa.flash_attention_bwd(dout, q, k, v, bias_row, None, rate, seed)
+        ref = fa.flash_attention_plain(q, k, v, bias_row, None, rate, seed, keep=keep)
+        refs = fa.flash_attention_bwd_plain(dout, q, k, v, bias_row, None, rate, seed,
+                                            keep=keep)
+        hold(results, "flash_attention", f"K7 out {H} heads {tag}", out, ref, TOL["bfloat16"])
+        for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+            hold(results, "flash_attention_bwd", f"K8 {name} {H} heads {tag}", a, r,
+                 TOL["bfloat16"])
+        del out, grads, ref, refs, keep
+        seed = tp.shard_seed(99, offset) if rate else None
+        keep = fused_ln.dropout_mask((N, E), seed, rate, DEV) if rate else None
+        ins = [t.detach().requires_grad_() for t in (x, res, gamma, beta)]
+        y = fused_ln.dropout_add_layernorm_train(*ins, seed=seed, rate=rate)
+        got = torch.autograd.grad(y, ins, dy)
+        want = fused_ln.dropout_add_layernorm_bwd_plain(dy, x, res, gamma, seed, rate, keep=keep)
+        hold(results, "dropout_add_layernorm", f"K5 out [{N}, {E}] {tag}", y.detach(),
+             fused_ln.dropout_add_layernorm_plain(x, res, gamma, beta, seed, rate, keep=keep),
+             TOL["bfloat16"])
+        for name, a, r in zip(("dx", "dres", "dgamma", "dbeta"), got, want):
+            hold(results, "dropout_add_layernorm_bwd", f"K6 {name} [{N}, {E}] {tag}", a, r,
+                 TOL["bfloat16"] if a.dtype == dt else TOL_GRAD["bfloat16"])
+
+
+def time_row_parallel(torch, rng, smi: str) -> dict:
+    """22 a. The FFN's row-parallel layer on a model rank (``ffn_output``:
+    [B·L, 1024] x [768, 1024]ᵀ, its half of the 2048 inputs), forward and
+    backward, at B = 8 (22 c) and 96 (bench.py): the model's partial
+    product (one bf16 GEMM writing its fp32 accumulators) against the
+    fp32 GEMM of the same values on the CUDA cores (TF32 off), with the
+    bound of the bf16 one. The forward is held against the fp32 one at
+    the fp32 gate: the products are exact in fp32 either way."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from pl_bert_tpu_torch.models.albert import _PartialProduct
+
+    K, N, dt = 1024, 768, torch.bfloat16
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(DEV)  # noqa: E731
+    out = {}
+    for B in (8, 96):
+        M = B * 512
+        a = to(rng.standard_normal((M, K))).to(dt).requires_grad_()
+        w = to(rng.standard_normal((N, K)) * 0.03).to(dt).requires_grad_()
+        g = to(rng.standard_normal((M, N))).to(dt).float()  # the fp32 gradient of a bf16 value
+        gate(f"row-parallel partial product [{M}, {K}] x [{N}, {K}]ᵀ against the fp32 GEMM",
+             errors(_PartialProduct.apply(a, w), F.linear(a.float(), w.float())), TOL["float32"])
+        # (partial product, fp32 GEMM) ms
+        fwd = a_b(torch, lambda: F.linear(a.float(), w.float()),
+                  lambda: _PartialProduct.apply(a, w), iters=10)
+        both = a_b(
+            torch,
+            lambda: torch.autograd.grad(F.linear(a.float(), w.float()), [a, w], g),
+            lambda: torch.autograd.grad(_PartialProduct.apply(a, w), [a, w], g), iters=10)
+        bound_f = bound_ms(2 * M * K * N, 2 * M * K + 2 * K * N + 4 * M * N)
+        # forward and backward: three products; a, w and g read, the fp32
+        # output and the bf16 dx and dw written
+        bound_b = bound_ms(6 * M * K * N, 2 * (2 * M * K + 2 * K * N) + 8 * M * N)
+        log(f"  row-parallel layer [{M}, {K}] x [{N}, {K}]ᵀ: forward {fwd[0]:.4f} ms (fp32 GEMM "
+            f"{fwd[1]:.4f}, bound {bound_f[0]:.4f} by {bound_f[1]}); forward and backward "
+            f"{both[0]:.4f} ms (fp32 {both[1]:.4f}, bound {bound_b[0]:.4f} by {bound_b[1]}) "
+            f"({smi})")
+        out[M] = {"forward": fwd, "both": both, "bound": (bound_f[0], bound_b[0])}
+        del a, w, g
+    return out
+
+
+def phase_sharded(torch, smi: str, results: dict) -> dict:
+    """22. the sharded step: a. its kernels at the shard's shapes; b. a NCCL
+    world of one; c. two ranks over gloo on the one card, five meshes; d.
+    the multi-task model at model 2."""
+    import torch.distributed as dist
+
+    from pl_bert_tpu_torch.training.train import train
+
+    t_phase = time.perf_counter()
+    kernels = phase_sharded_kernels(torch, results, smi)
+    out = {"kernels": kernels}
+    with tempfile.TemporaryDirectory() as workdir:
+        runs = os.path.join(workdir, "runs")
+
+        def one_rank(config: str, run: str, world_of_one: bool = False) -> tuple[list, float]:
+            """One process through train(); with ``world_of_one`` in a NCCL
+            world of one (PLBERT_DISTRIBUTED=1). Its steps, and the median
+            ms of its steps past the first, each timed between two
+            synchronisations, as each rank of 22 c times its own."""
+            env = {}
+            if world_of_one:
+                import socket
+
+                with socket.socket() as s:
+                    s.bind(("localhost", 0))
+                    env = {"PLBERT_DISTRIBUTED": "1", "PLBERT_NUM_PROCESSES": "1",
+                           "PLBERT_COORDINATOR": f"localhost:{s.getsockname()[1]}",
+                           "PLBERT_PROCESS_ID": "0"}
+            os.environ.update(env)
+            try:
+                with contextlib.redirect_stdout(io.StringIO()), timed_steps(torch) as trainers:
+                    train({"config_path": config, "run_name": run, "device": DEV})
+            finally:
+                for key in env:
+                    del os.environ[key]
+                if dist.is_initialized():
+                    log(f"  {run}: a world of {dist.get_world_size()} over "
+                        f"{dist.get_backend()}")
+                    dist.destroy_process_group()
+            return metrics_steps(os.path.join(runs, run)), median_step_ms(trainers[0].step_s)
+
+        log("phase 22 b: a NCCL world of one (PLBERT_DISTRIBUTED=1) against no world, the "
+            "Trainer on bench.py's workload (B 96, L 512, bf16, dropout 0.1, block path), "
+            "4 steps each")
+        bench = lambda name: sharded_config(  # noqa: E731
+            os.path.join(workdir, f"{name}.yml"), runs, batch=96, dropout=0.1, samples=640)
+        plain, plain_ms = one_rank(bench("bench"), "bench")
+        world, world_ms = one_rank(bench("bench_world"), "bench_world", world_of_one=True)
+        out["world_of_one"] = compare_runs(world, plain, "NCCL world of one against none")
+        log(f"  {world_ms:.1f} ms a step in a world of one against {plain_ms:.1f} without "
+            f"(median of steps 2-4, each between two synchronisations) ({smi})")
+        out["world_ms"], out["plain_ms"] = world_ms, plain_ms
+
+        log("phase 22 c: two ranks on the one card over gloo (NCCL refuses two ranks on one "
+            "device; gloo moves every collective through host memory, not NVLink): the "
+            "flagship model, L 512, global batch 8, bf16, dropout 0, 4 steps through "
+            "training.train.train(), against one rank on the same weights and batches")
+        refs = {impl: one_rank(sharded_config(os.path.join(workdir, f"ref_{impl}.yml"), runs,
+                                              impl=impl), f"ref_{impl}")
+                for impl in ("auto", "pallas")}
+        n, steps = 12, 4
+        for impl, (_, ms) in refs.items():
+            log(f"  one rank, attention_impl {impl}: {ms:.1f} ms a step (median of steps "
+                f"2-{steps}, each between two synchronisations; no collective) ({smi})")
+        out["one_rank_ms"] = {impl: ms for impl, (_, ms) in refs.items()}
+        by_run = {}
+        for label, (data, model, zero1, impl, sp) in SHARDED_RUNS.items():
+            run = "r_" + label.replace(" ", "").replace(",", "_")
+            config = sharded_config(os.path.join(workdir, f"{run}.yml"), runs, data=data,
+                                    model=model, zero1=zero1, impl=impl, sp=sp)
+            ranks = run_ranks(config, run, 2, workdir)
+            got = metrics_steps(os.path.join(runs, run))
+            bitwise = compare_runs(got, refs[impl][0], f"{label} against one rank")
+            by_run[label] = {"ranks": ranks, "steps": got, "bitwise": bitwise}
+            heads = 12 // model
+            for rank, r in enumerate(ranks):
+                c, vals = r["launches"], 0
+                if impl == "auto":
+                    vals, rem = divmod(c["attention_block"], n)
+                    expect = dict.fromkeys(c, 0)
+                    expect.update({"attention_block": n * vals,
+                                   "attention_block_train": n * steps,
+                                   "attention_block_bwd": n * steps,
+                                   "dropout_add_layernorm": 2 * n * (steps + vals),
+                                   "dropout_add_layernorm_bwd": 2 * n * steps})
+                else:
+                    vals, rem = divmod(c["flash_attention"] - n * steps, n)
+                    expect = dict.fromkeys(c, 0)
+                    expect.update({"flash_attention": n * (steps + vals),
+                                   "flash_attention_bwd": n * steps,
+                                   "dropout_add_layernorm": 2 * n * (steps + vals),
+                                   "dropout_add_layernorm_bwd": 2 * n * steps})
+                if rem or vals < 1 or c != expect or r["local_heads"] != heads:
+                    raise AssertionError(f"{label} rank {rank}: launches {c} != {expect} or "
+                                         f"heads {r['local_heads']} != {heads}")
+                log(f"  {label} rank {rank}: {r['local_heads']} local heads; launches over "
+                    f"{steps} steps and {vals} validation forwards {c}; "
+                    f"{median_step_ms(r['step_s']):.1f} ms "
+                    f"a step (median of steps 2-{steps}, gloo through host memory); peak "
+                    f"{r['peak'] / 2**30:.2f} GiB ({r['peak']} bytes) ({smi})")
+            if model > 1:
+                same = ranks[0]["digests"] == ranks[1]["digests"]
+                log(f"  {label}: replicated parameters bitwise equal across the model ranks "
+                    f"after step {steps}: {same} ({len(ranks[0]['digests'])} tensors)")
+                if not same:
+                    raise AssertionError(f"{label}: replicated parameters differ across ranks")
+        zero1 = compare_runs(by_run["data 2, zero1"]["steps"], by_run["data 2"]["steps"],
+                             "data 2 with zero1 against data 2")
+        out["runs"], out["zero1_bitwise"] = by_run, zero1
+
+        log("phase 22 d: the multi-task model at model 2, data 1 (head of 60,000, fused, "
+            "capacity 144, dropout 0.1, 2 steps, global batch 8)")
+        config = sharded_config(os.path.join(workdir, "mt.yml"), runs, model=2, dropout=0.1,
+                                steps=2, multitask=True)
+        ranks = run_ranks(config, "mt", 2, workdir)
+        got = metrics_steps(os.path.join(runs, "mt"))
+        head = [k for k in ranks[0]["digests"] if k.startswith("token_predictor.")]
+        same = all(ranks[0]["digests"][k] == ranks[1]["digests"][k] for k in head)
+        log(f"  losses {[(round(r['phoneme_loss'], 4), round(r['token_loss'], 4)) for r in got]};"
+            f" the head's {head} bitwise equal across the ranks: {same}; peak "
+            f"{ranks[0]['peak'] / 2**30:.2f} GiB ({smi})")
+        if len(got) != 2 or not all(np_isfinite(r[k]) for r in got
+                                    for k in ("phoneme_loss", "token_loss", "grad_norm")):
+            raise AssertionError(f"multi-task model 2: {got}")
+        if len(head) != 2 or not same:
+            raise AssertionError("the grapheme head differs across the model ranks")
+    out["launches"] = by_run["model 2, SP"]["ranks"][0]["launches"]
+    wall = time.perf_counter() - t_phase
+    log(f"phase 22 took {wall:.1f} s")
+    out["wall_s"] = wall
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2934,6 +3549,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         deploy = phase_deploy(torch, sd, mt_dir, smi)  # on 18 c's step_6.pth
     remat = phase_remat(torch, smi)
+    torch.cuda.empty_cache()
+    sharded = phase_sharded(torch, smi, results)
     imported = sorted({"datasets", "transformers", "safetensors"} & set(sys.modules))
     if imported:
         raise AssertionError(f"the smoke's path imported {imported}")
@@ -2941,7 +3558,8 @@ def main() -> int:
     paths = {"serving": (serve_launches, serving), "training": (train_launches, training),
              "packed_run": (run_launches, flash), "microbench": (bench_launches, flash),
              "multitask": (mt_launches, flash), "store_run": (stored["launches"], flash),
-             "deploy": (deploy["launches"], flash), "remat": (remat["launches"], flash)}
+             "deploy": (deploy["launches"], flash), "remat": (remat["launches"], flash),
+             "sharded": (sharded["launches"], flash)}
     kernels = []
     for name, (route, source, replaces, path) in KERNELS.items():
         launches, measured = paths[path]
@@ -2979,6 +3597,13 @@ def main() -> int:
         f"peak {on['peak'] / 2**30:.2f} against {off['peak'] / 2**30:.2f} GiB, bitwise "
         f"{remat['bitwise']} (without remat, a second run bitwise the first: {remat['repeats']}) "
         f"({smi})")
+    times22 = sharded["kernels"]["times"]
+    log("sharded step (phase 22): K1 / K3 / K4 at P = 384 with the fp32 output: "
+        + ", ".join(f"{name} {k:.4f} ms (plain {p:.4f})" for name, (k, p) in times22.items())
+        + f"; NCCL world of one {sharded['world_ms']:.1f} against {sharded['plain_ms']:.1f} ms "
+        f"a step; one rank at B=8 {sharded['one_rank_ms']['auto']:.1f} (block) and "
+        f"{sharded['one_rank_ms']['pallas']:.1f} (flash) ms a step; zero1 bitwise data 2: "
+        f"{sharded['zero1_bitwise']} ({smi})")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2988,4 +3613,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:  # one rank of phase 22 c/d
+        sharded_rank(json.loads(sys.argv[2]))
+        sys.exit(0)
     sys.exit(main())

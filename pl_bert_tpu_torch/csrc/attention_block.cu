@@ -18,7 +18,10 @@
 //                                   [+ seg])) v, and for the training forward
 //                                   the row max m and denominator l [B, H, L]
 //   3. gemm:           out[M, E]  = ctx[M, P] . Wo[P, E] + bo
-// M = B*L. In bf16 (what serving and training run) the three run on the
+// M = B*L. out is the compute type T, or with out_f32 fp32 unrounded: a
+// tensor-parallel shard's partial out-projection over its own heads, which
+// the model ranks sum before the one rounding (pl_bert_tpu/parallel/tp.py:
+// 101 asks its shard kernel for out_dtype=float32). In bf16 (what serving and training run) the three run on the
 // tensor cores: gemm_bias_sm90 (gemm_sm90.cuh: wgmma fed by a TMA ring)
 // and attention_fwd_sm90 (attention_tiles.cuh: wgmma for q.k and, from
 // registers, p.v). In fp32 (K2, fp32 K3) they are gemm_bias and
@@ -178,11 +181,12 @@ cudaError_t launch_gemm(const void* A, const void* B, const void* bias, void* C,
 
 // The forward's projections (C = A . B + bias) and the backward's dx (TB:
 // C = A . B^T): bf16 on the tensor cores, fp32 on the CUDA cores
+// (out_f32: C in fp32; the fp32 kernel writes fp32 anyway)
 template <typename T, bool TB>
 cudaError_t launch_proj(const void* A, const void* B, const void* bias, void* C, int M, int N,
-                        int K, cudaStream_t stream) {
+                        int K, cudaStream_t stream, bool out_f32 = false) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    return launch_gemm_sm90<TB>(A, B, bias, C, M, N, K, stream);
+    return launch_gemm_sm90<TB>(A, B, bias, C, M, N, K, stream, out_f32);
   else
     return launch_gemm<T, TB>(A, B, bias, C, M, N, K, stream);
 }
@@ -191,7 +195,7 @@ template <typename T, int D>
 cudaError_t run_fwd(const void* x, const void* wqkv, const void* bqkv, const void* wo,
                     const void* bo, const void* bias_row, const void* seg_row, void* qkv,
                     void* ctx, void* out, void* stat_m, void* stat_l, int B, int L, int E,
-                    int P, int H, Dropout drop, cudaStream_t stream) {
+                    int P, int H, Dropout drop, bool out_f32, cudaStream_t stream) {
   const int M = B * L;
   cudaError_t err = launch_proj<T, false>(x, wqkv, bqkv, qkv, M, 3 * P, E, stream);
   if (err != cudaSuccess) return err;
@@ -203,7 +207,7 @@ cudaError_t run_fwd(const void* x, const void* wqkv, const void* bqkv, const voi
       Rows<T>{static_cast<T*>(ctx), P}, static_cast<float*>(stat_m),
       static_cast<float*>(stat_l), B, L, H, drop, stream);
   if (err != cudaSuccess) return err;
-  return launch_proj<T, false>(ctx, wo, bo, out, M, E, P, stream);
+  return launch_proj<T, false>(ctx, wo, bo, out, M, E, P, stream, out_f32);
 }
 
 template <typename T, int D>
@@ -238,9 +242,10 @@ bool shape_ok(int B, int L, int E, int P, int H) {
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16; x, the matrices, qkv, ctx and
-// out are all of that type. Each entry returns cudaGetLastError() after its
-// launches (0 = success), or -1 for arguments it refuses.
+// dtype codes: 0 = float32, 1 = bfloat16; x, the matrices, qkv and ctx are
+// all of that type, and so is out unless out_f32 (then fp32). Each entry
+// returns cudaGetLastError() after its launches (0 = success), or -1 for
+// arguments it refuses.
 // bias_row [B, L] fp32 is already clamped to _NEG, or NULL for none;
 // seg_row [B, L] fp32, or NULL for no segments. qkv [B*L, 3P] and
 // ctx [B*L, P] are written; stat_m and stat_l [B, H, L] fp32 are written
@@ -249,23 +254,25 @@ bool shape_ok(int B, int L, int E, int P, int H) {
 extern "C" int plbt_attention_block_fwd(
     const void* x, const void* wqkv, const void* bqkv, const void* wo, const void* bo,
     const void* bias_row, const void* seg_row, void* qkv, void* ctx, void* out,
-    void* stat_m, void* stat_l, int B, int L, int E, int P, int H, int dtype,
+    void* stat_m, void* stat_l, int B, int L, int E, int P, int H, int dtype, int out_f32,
     int dropout, unsigned int seed, unsigned int thresh, float inv_keep, void* stream) {
   if (!shape_ok(B, L, E, P, H) || (stat_m == nullptr) != (stat_l == nullptr)) return -1;
+  const bool f32 = out_f32 != 0;
   const Dropout drop = make_dropout(dropout, seed, thresh, inv_keep);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool d64 = P / H == 64;
   cudaError_t err;
   if (dtype == 0) {
     err = d64 ? run_fwd<float, 64>(x, wqkv, bqkv, wo, bo, bias_row, seg_row, qkv, ctx, out,
-                                   stat_m, stat_l, B, L, E, P, H, drop, st)
+                                   stat_m, stat_l, B, L, E, P, H, drop, f32, st)
               : run_fwd<float, 128>(x, wqkv, bqkv, wo, bo, bias_row, seg_row, qkv, ctx, out,
-                                    stat_m, stat_l, B, L, E, P, H, drop, st);
+                                    stat_m, stat_l, B, L, E, P, H, drop, f32, st);
   } else if (dtype == 1) {
     err = d64 ? run_fwd<__nv_bfloat16, 64>(x, wqkv, bqkv, wo, bo, bias_row, seg_row, qkv, ctx,
-                                           out, stat_m, stat_l, B, L, E, P, H, drop, st)
+                                           out, stat_m, stat_l, B, L, E, P, H, drop, f32, st)
               : run_fwd<__nv_bfloat16, 128>(x, wqkv, bqkv, wo, bo, bias_row, seg_row, qkv,
-                                            ctx, out, stat_m, stat_l, B, L, E, P, H, drop, st);
+                                            ctx, out, stat_m, stat_l, B, L, E, P, H, drop, f32,
+                                            st);
   } else {
     return -1;
   }

@@ -9,7 +9,10 @@
 // every step. bf16 operands, fp32 accumulation, the fp32 bias added before
 // the one rounding to bf16 -- the rounding point of the SIMT gemm_bias in
 // attention_block.cu and of the TPU kernel
-// (pl_bert_tpu/ops/attention_block.py:128-131, 168, 331-334, 389-401).
+// (pl_bert_tpu/ops/attention_block.py:128-131, 168, 331-334, 389-401) --
+// or, with out_f32, stored in fp32 unrounded: the tensor-parallel shard's
+// partial out-projection, summed across the model ranks before its one
+// rounding (pl_bert_tpu/parallel/tp.py:101).
 //
 // What bounds it: at the flagship width the products are far above the
 // card's ridge (x.Wqkv at M = 4096 is 14.5 GFLOP against 29 MB), so the
@@ -47,8 +50,8 @@ constexpr size_t WG_SMEM =
 template <bool BT>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 gemm_bias_sm90(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
-               const float* __restrict__ bias, __nv_bfloat16* __restrict__ C, int M, int N,
-               int K) {
+               const float* __restrict__ bias, void* __restrict__ C, int M, int N, int K,
+               bool out_f32) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* As = align_1k(smem_raw);                   // [stage][128 rows][128 B]
   uint8_t* Bs = As + WG_STAGES * WG_A_BYTES;  // [stage][2 boxes][64 rows][128 B] or BT [128][128 B]
@@ -113,7 +116,8 @@ gemm_bias_sm90(const __grid_constant__ CUtensorMap amap, const __grid_constant__
     promote(acc, part);
   }
 
-  // epilogue: bias in fp32, one rounding, bf16 pairs (N is even)
+  // epilogue: bias in fp32, one rounding, bf16 pairs (N is even); or fp32
+  // pairs, unrounded
   const int g = lane / 4, t = lane % 4;
   const int row = m0 + 64 * wg + 16 * (warp % 4) + g;
 #pragma unroll
@@ -124,21 +128,27 @@ gemm_bias_sm90(const __grid_constant__ CUtensorMap amap, const __grid_constant__
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = row + 8 * i;
-      if (r < M)
-        *reinterpret_cast<__nv_bfloat162*>(C + (size_t)r * N + col) =
-            __floats2bfloat162_rn(acc[4 * c + 2 * i] + b0, acc[4 * c + 2 * i + 1] + b1);
+      if (r >= M) continue;
+      const float v0 = acc[4 * c + 2 * i] + b0, v1 = acc[4 * c + 2 * i + 1] + b1;
+      const size_t at = (size_t)r * N + col;
+      if (out_f32)
+        *reinterpret_cast<float2*>(static_cast<float*>(C) + at) = make_float2(v0, v1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(C) + at) =
+            __floats2bfloat162_rn(v0, v1);
     }
   }
 }
 
 // C = A . B + bias on `stream`; bf16 A [M, K], B [K, N] (or with BT B [N, K]
-// and C = A . B^T), C [M, N] row-major, bias [N] fp32 or NULL. Every
+// and C = A . B^T), C [M, N] row-major (bf16, or fp32 with out_f32), bias
+// [N] fp32 or NULL. Every
 // pointer 16-byte aligned and K, N multiples of 8 (TMA's 16-byte rule for
 // bases and row strides); otherwise the map is refused and this returns
 // cudaErrorInvalidValue before launching.
 template <bool BT = false>
 cudaError_t launch_gemm_sm90(const void* A, const void* B, const void* bias, void* C, int M,
-                             int N, int K, cudaStream_t stream) {
+                             int N, int K, cudaStream_t stream, bool out_f32 = false) {
   CUtensorMap amap, bmap;
   const cuuint64_t adims[2] = {(cuuint64_t)K, (cuuint64_t)M}, astride[1] = {(cuuint64_t)K * 2};
   const cuuint64_t bdims[2] = {(cuuint64_t)(BT ? K : N), (cuuint64_t)(BT ? N : K)};
@@ -152,7 +162,7 @@ cudaError_t launch_gemm_sm90(const void* A, const void* B, const void* bias, voi
   if (err != cudaSuccess) return err;
   const dim3 grid((N + WG_BN - 1) / WG_BN, (M + WG_BM - 1) / WG_BM);
   gemm_bias_sm90<BT><<<grid, WG_THREADS, WG_SMEM, stream>>>(
-      amap, bmap, static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(C), M, N, K);
+      amap, bmap, static_cast<const float*>(bias), C, M, N, K, out_f32);
   return cudaGetLastError();
 }
 

@@ -53,6 +53,25 @@ Dropout draws one seed per site per layer application per forward —
 the embedding, then (attention, first LayerNorm, second LayerNorm) for
 each application — as host ints (:func:`draw_dropout_seeds`), the
 counterpart of ``_dropout_rate_seed`` (pl_bert_tpu/models/albert.py:110-119).
+
+``mesh`` (``parallel/mesh.py``) runs the model on one cell of a (data,
+model) mesh, as JAX's ``mesh`` does (pl_bert_tpu/models/albert.py:
+176-241): the model holds this rank's shard of the parameters
+(``parallel.mesh.shard_model``) and a batch slice. With ``model`` > 1
+the query/key/value and ``ffn`` layers are column-parallel (this rank's
+heads and FFN columns) and ``dense``/``ffn_output`` row-parallel: their
+fp32 partial sums are all-reduced over the model group (the block
+kernel writes them, as JAX's TP shard does; a dense layer's are one
+GEMM's fp32 accumulators over its compute-dtype operands, as GSPMD's
+all-reduce is fp32 in JAX's bf16 step) and the bias added once, before
+the one rounding. ``sequence_parallel`` keeps the
+activations between the attention and the FFN as this rank's L/m rows:
+the partials are reduce-scattered over L, the LayerNorms run on the
+local rows, and each attention and FFN input is all-gathered over L
+first (``parallel/tp.py``, ``parallel/collectives.py``). Dropout seeds
+take JAX's shard offsets, and the embedding's mask is drawn at the
+global batch shape and sliced, so a data-parallel run drops as a
+one-process run of the global batch does.
 """
 
 from __future__ import annotations
@@ -68,7 +87,6 @@ from torch.utils.checkpoint import checkpoint
 from pl_bert_tpu_torch.ops import quant
 from pl_bert_tpu_torch.ops.attention import (
     eager_attention,
-    fused_attention,
     kernel_refusal,
     resolve_impl,
     self_attention,
@@ -81,6 +99,8 @@ from pl_bert_tpu_torch.ops.fused_ln import (
     dropout_add_layernorm_train,
     ln_kernel_refusal,
 )
+from pl_bert_tpu_torch.parallel import collectives as col
+from pl_bert_tpu_torch.parallel import tp
 
 logger = logging.getLogger(__name__)
 
@@ -103,10 +123,51 @@ class AlbertConfig:
     dtype: torch.dtype = torch.float32  # compute dtype (params stay fp32)
     remat: bool = False  # recompute each layer application in the backward
     quantize: str | None = None  # None | "int8" (inference-only)
+    mesh: object = None  # parallel.mesh.Mesh: this rank's cell (None: one device)
+    sequence_parallel: bool = False  # with mesh.model > 1
+
+    def __post_init__(self) -> None:
+        m = self.tp_size
+        if m > 1:
+            for what, n in (("hidden_size", self.hidden_size),
+                            ("intermediate_size", self.intermediate_size)):
+                if n % m:
+                    raise ValueError(f"{what} {n} is not divisible by model_axis {m}")
+            if self.quantize is not None:
+                raise ValueError("quantize is inference-only and runs on one device")
+
+    @property
+    def tp_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.model
+
+    @property
+    def attention_shards(self) -> int:
+        """The model ranks the attention's heads split over: all of them,
+        or 1 where the heads do not divide (the attention then runs whole
+        on every rank, as JAX's falls back to XLA attention,
+        pl_bert_tpu/models/albert.py:190-193)."""
+        m = self.tp_size
+        return m if self.num_attention_heads % m == 0 else 1
+
+    @property
+    def local_heads(self) -> int:
+        return self.num_attention_heads // self.attention_shards
+
+    def sp_active(self, L: int) -> bool:
+        """Sequence parallelism applies (JAX's ``_sp_active``, :213-229):
+        asked for, with more than one model rank; an indivisible sequence
+        raises, since silently dropping it would hide a misconfiguration."""
+        m = self.tp_size
+        if not (self.sequence_parallel and m > 1):
+            return False
+        if L % m:
+            raise ValueError(f"model_params.sequence_parallel requires seq_len {L} "
+                             f"divisible by model_axis {m}")
+        return True
 
     @classmethod
     def from_params(cls, p, dtype: torch.dtype = torch.float32,
-                    remat: bool = False) -> "AlbertConfig":
+                    remat: bool = False, mesh=None) -> "AlbertConfig":
         """From any object with ``ModelParams``' attribute names
         (``pl_bert_tpu_torch.config.ModelParams``, or another AlbertConfig)."""
         return cls(
@@ -124,6 +185,8 @@ class AlbertConfig:
             attention_impl=str(p.attention_impl),
             dtype=dtype,
             remat=remat,
+            mesh=mesh,
+            sequence_parallel=bool(getattr(p, "sequence_parallel", False)),
         )
 
     @property
@@ -173,6 +236,44 @@ def _linear(x, w: dict, dtype):
     return F.linear(x, w["w"].to(dtype), w["b"].to(dtype))
 
 
+class _PartialProduct(torch.autograd.Function):
+    """``x @ w.T`` of compute-dtype operands with the product kept in
+    fp32 (a row-parallel layer's partial sum): on the card one cuBLAS GEMM
+    that reads the bf16 operands on the tensor cores and writes its fp32
+    accumulators (``torch.mm``'s ``out_dtype``), elsewhere the fp32
+    product of the same values. The backward takes the output gradient
+    in the compute dtype (it holds compute-dtype values: it comes back
+    through the one rounding after the sum) and returns ``dx`` and ``dw``
+    in it, as the layer's own backward in the compute dtype would."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.is_cuda and x.dtype != torch.float32:
+            part = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        else:
+            part = x2.float() @ w.float().t()
+        return part.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(x.dtype)
+        dx = (g2 @ w).reshape(x.shape)
+        return dx, g2.t() @ x.reshape(-1, x.shape[-1])
+
+
+def _row_parallel(x, weight, bias, cfg: AlbertConfig, sp: bool):
+    """A row-parallel dense layer (``weight`` [out, in/m], this rank's
+    input slice): the fp32 partial product of the compute-dtype operands
+    (:class:`_PartialProduct`), summed over the model group
+    (reduce-scattered over L under ``sp``), then the bias added once and
+    the one rounding."""
+    part = _PartialProduct.apply(x.to(cfg.dtype), weight.to(cfg.dtype))
+    return (tp.leave(part, cfg.mesh, sp) + bias.float()).to(cfg.dtype)
+
+
 def _project(x, w: dict, name: str, dtype):
     """The attention's packed q|k|v (``name`` "qkv") or output ("o")
     projection of [rows, in] ``x``: an int8 site (``w[name]``), or the
@@ -191,13 +292,19 @@ def draw_dropout_seeds(generator: torch.Generator, num_layers: int) -> list[int]
     return torch.randint(0, 2**31 - 1, (1 + 3 * num_layers,), generator=generator).tolist()
 
 
-def _dropout(x, seed, rate: float):
+def _dropout(x, seed, rate: float, mesh=None):
     """Embedding dropout (no kernel in the JAX package either): a mask
-    from a ``torch.Generator`` on ``x``'s device seeded with ``seed``."""
+    from a ``torch.Generator`` on ``x``'s device seeded with ``seed``,
+    drawn at the global batch shape and sliced to this rank's rows, as
+    ``jax.random`` draws depend on the shape only."""
     if seed is None or rate <= 0.0:
         return x
     gen = torch.Generator(device=x.device).manual_seed(int(seed))
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    data = 1 if mesh is None else mesh.data
+    shape = (x.shape[0] * data, *x.shape[1:])
+    keep = torch.rand(shape, generator=gen, device=x.device) >= rate
+    if data > 1:
+        keep = keep[mesh.data_index * x.shape[0]:(mesh.data_index + 1) * x.shape[0]]
     return torch.where(keep, x * (1.0 / (1.0 - rate)), 0.0).to(x.dtype)
 
 
@@ -238,7 +345,7 @@ class AlbertEmbeddings(nn.Module):
         x = F.layer_norm(
             x, (x.shape[-1],), w["ln"]["g"], w["ln"]["b"], self.cfg.layer_norm_eps
         )
-        return _dropout(x.to(self.cfg.dtype), seed, self.cfg.dropout)
+        return _dropout(x.to(self.cfg.dtype), seed, self.cfg.dropout, self.cfg.mesh)
 
     def train_weights(self) -> dict:
         return {
@@ -258,7 +365,15 @@ class AlbertSelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.impl = resolve_impl(cfg.attention_impl, cfg.head_dim, cfg.hidden_size, cfg.dtype)
-        if self.impl == "eager" and resolve_impl(cfg.attention_impl) != "eager":
+        # heads that do not divide the model axis: the attention runs
+        # whole on every model rank, on the eager path
+        self.whole = cfg.tp_size > 1 and cfg.attention_shards == 1
+        if self.whole and self.impl != "eager":
+            self.impl = "eager"
+            logger.warning("attention_impl %r falls back to the eager path: %d heads do not "
+                           "divide model_axis %d", cfg.attention_impl,
+                           cfg.num_attention_heads, cfg.tp_size)
+        elif self.impl == "eager" and resolve_impl(cfg.attention_impl) != "eager":
             logger.warning("attention_impl %r falls back to the eager path: %s",
                            cfg.attention_impl,
                            kernel_refusal(cfg.head_dim, cfg.hidden_size, cfg.dtype))
@@ -272,6 +387,20 @@ class AlbertSelfAttention(nn.Module):
         self.dense = nn.Linear(H, H)
         self.LayerNorm = nn.LayerNorm(H, eps=cfg.layer_norm_eps)
 
+    def _params(self) -> tuple:
+        """(query, key, value, dense) weights and biases, nn.Linear's
+        layout: this rank's shards, or where the attention runs whole the
+        full tensors gathered over the model group (their gradients come
+        back as this rank's shard of them)."""
+        layers = (self.query, self.key, self.value, self.dense)
+        if not self.whole:
+            return tuple(t for layer in layers for t in (layer.weight, layer.bias))
+        mesh = self.cfg.mesh
+        out = []
+        for layer in layers[:3]:
+            out += [col.unsplit(layer.weight, mesh, 0), col.unsplit(layer.bias, mesh, 0)]
+        return (*out, col.unsplit(self.dense.weight, mesh, 1), self.dense.bias)
+
     def compute_weights(self, dtype) -> dict:
         if self.cfg.quantize and self.impl != "block":
             # JAX's query, key, value and dense sites, q|k|v as one int8
@@ -284,11 +413,8 @@ class AlbertSelfAttention(nn.Module):
                     "o": _linear_weights(self.dense, dtype, int8=True),
                     "ln": _ln_weights(self.LayerNorm)}
         # nn.Linear stores [out, in]; the kernel takes JAX's [in, out]
-        wqkv, bqkv, wo, bo = pack_weights(
-            self.query.weight.T, self.query.bias, self.key.weight.T,
-            self.key.bias, self.value.weight.T, self.value.bias,
-            self.dense.weight.T, self.dense.bias, dtype,
-        )
+        wq, bq, wk, bk, wv, bv, wd, bd = self._params()
+        wqkv, bqkv, wo, bo = pack_weights(wq.T, bq, wk.T, bk, wv.T, bv, wd.T, bd, dtype)
         return {"wqkv": wqkv, "bqkv": bqkv, "wo": wo, "bo": bo,
                 "ln": _ln_weights(self.LayerNorm)}
 
@@ -296,64 +422,106 @@ class AlbertSelfAttention(nn.Module):
         """The fp32 parameters in the kernel layout, inside autograd,
         and (``wqkv``, ``wo``) their compute-dtype copies without
         gradients."""
-        wqkv32 = torch.cat(
-            [self.query.weight.T, self.key.weight.T, self.value.weight.T], dim=1
-        )
-        wo32 = self.dense.weight.T
+        wq, bq, wk, bk, wv, bv, wd, bd = self._params()
+        wqkv32 = torch.cat([wq.T, wk.T, wv.T], dim=1)
+        wo32 = wd.T
         return {
             "wqkv32": wqkv32,
-            "bqkv": torch.cat([self.query.bias, self.key.bias, self.value.bias]),
-            "wo32": wo32, "bo": self.dense.bias,
+            "bqkv": torch.cat([bq, bk, bv]),
+            "wo32": wo32, "bo": bd,
             "wqkv": wqkv32.detach().to(dtype).contiguous(),
             "wo": wo32.detach().to(dtype).contiguous(),
             "ln": {"g": self.LayerNorm.weight, "b": self.LayerNorm.bias},
         }
 
-    def _projected(self, hidden, attention_bias, segment_ids, w: dict, seed=None):
+    def _projected(self, hidden, attention_bias, segment_ids, w: dict, seed=None,
+                   sp: bool = False):
         """JAX's ``pallas`` and ``xla`` branches: q, k, v from one
         projection (three dense layers' worth; the flash kernel reads the
         three sections in place), the attention — K7 (K8 under autograd)
-        on the flash path, the plain attention on the eager path of an
-        int8 weight set — then the ``dense`` projection."""
+        on the flash path (``tp.tp_flash_attention``, which offsets the
+        site's ``seed`` by the shard's), the plain attention on the eager
+        path of an int8 weight set (one device, no dropout) — then the
+        ``dense`` projection. Under tensor parallelism ``hidden`` is the
+        region's input and the heads are this rank's; ``dense`` is
+        row-parallel."""
         cfg = self.cfg
-        B, L, E = hidden.shape
-        dtype, nh = cfg.dtype, cfg.num_attention_heads
-        qkv = _project(hidden.reshape(B * L, E), w, "qkv", dtype)
-        q, k, v = (t.reshape(B, L, nh, cfg.head_dim) for t in qkv.split(E, dim=1))
+        B, L, _ = hidden.shape
+        dtype, nh, D = cfg.dtype, cfg.local_heads, cfg.head_dim
+        P = nh * D
+        qkv = _project(hidden.reshape(B * L, -1), w, "qkv", dtype)
+        q, k, v = (t.reshape(B, L, nh, D) for t in qkv.split(P, dim=1))
         if self.impl == "flash":
-            ctx = fused_attention(
-                q, k, v, attention_bias, segment_ids, dtype=dtype,
+            ctx = tp.tp_flash_attention(
+                cfg.mesh, q, k, v, attention_bias, segment_ids, out_dtype=dtype,
                 dropout_rate=cfg.dropout if seed is not None else 0.0, dropout_seed=seed,
             )
         else:
             ctx = eager_attention(q, k, v, attention_bias, segment_ids, dtype=dtype)
-        return _project(ctx.reshape(B * L, E), w, "o", dtype).reshape(B, L, E)
+        ctx = ctx.reshape(B, L, P)
+        if cfg.attention_shards > 1:
+            wo = w["wo32"] if "wo32" in w else w["wo"]
+            return _row_parallel(ctx, wo.T, w["bo"], cfg, sp)
+        return _project(ctx.reshape(B * L, P), w, "o", dtype).reshape(B, L, -1)
 
     def forward(self, hidden, attention_bias, segment_ids, w: dict, seeds=None):
+        """``hidden``: [B, L, E], or this rank's [B, L/m, E] rows under
+        sequence parallelism (and so is the output). Sharded, the
+        attention runs through ``tp.tp_attention_block`` (the block and
+        eager paths) or ``tp.tp_flash_attention``, the LayerNorm through
+        ``tp.tp_dropout_add_layernorm``; each offsets its site's seed by
+        the shard's."""
         cfg = self.cfg
-        if self.impl == "flash" or "qkv" in w:
-            train = seeds is not None
-            out = self._projected(hidden, attention_bias, segment_ids, w,
-                                  seeds[0] if train else None)
-            return _add_layernorm(
-                self.ln_fns, out, hidden, w["ln"], cfg.layer_norm_eps, train,
-                seeds[1] if train else None, cfg.dropout if train else 0.0,
-            )
-        if seeds is None:
-            out = self_attention(
-                self.impl, hidden, w["wqkv"], w["bqkv"], w["wo"], w["bo"],
-                cfg.num_attention_heads, bias=attention_bias,
-                segment_ids=segment_ids, out_dtype=cfg.dtype,
-            )
-            return _add_layernorm(self.ln_fns, out, hidden, w["ln"], cfg.layer_norm_eps)
-        out = self_attention_train(
-            self.impl, hidden, w, cfg.num_attention_heads, bias=attention_bias,
-            segment_ids=segment_ids, dropout_rate=cfg.dropout, dropout_seed=seeds[0],
-        )
-        return _add_layernorm(
-            self.ln_fns, out, hidden, w["ln"], cfg.layer_norm_eps, True, seeds[1],
-            cfg.dropout,
-        )
+        mesh = cfg.mesh
+        train = seeds is not None
+        seeds = seeds if train else (None, None)
+        sp = cfg.sp_active(hidden.shape[1] * cfg.tp_size)
+        if self.whole:
+            out = self._whole(hidden, attention_bias, segment_ids, w, seeds[0], sp)
+        elif self.impl == "flash" or "qkv" in w:
+            out = self._projected(tp.enter(hidden, mesh, sp), attention_bias, segment_ids, w,
+                                  seeds[0], sp)
+        elif cfg.attention_shards > 1:
+            out = tp.tp_attention_block(
+                mesh, hidden, w, cfg.num_attention_heads, impl=self.impl, bias=attention_bias,
+                segment_ids=segment_ids, out_dtype=cfg.dtype, dropout_rate=cfg.dropout,
+                dropout_seed=seeds[0], sp=sp)
+        elif train:
+            out = self_attention_train(
+                self.impl, hidden, w, cfg.num_attention_heads, bias=attention_bias,
+                segment_ids=segment_ids, dropout_rate=cfg.dropout,
+                dropout_seed=tp.attention_seed(seeds[0], mesh), out_dtype=cfg.dtype)
+        else:
+            out = self_attention(self.impl, hidden, w["wqkv"], w["bqkv"], w["wo"], w["bo"],
+                                 cfg.num_attention_heads, bias=attention_bias,
+                                 segment_ids=segment_ids, out_dtype=cfg.dtype)
+        return tp.tp_dropout_add_layernorm(
+            mesh, out, hidden, w["ln"]["g"], w["ln"]["b"], seeds[1], cfg.dropout,
+            cfg.layer_norm_eps, sp=sp, fn=self.ln_fns[train])
+
+    def _whole(self, hidden, attention_bias, segment_ids, w: dict, seed, sp: bool):
+        """Heads that do not divide the model axis: every model rank runs
+        the whole attention on the eager path (under ``sp`` on the rows
+        gathered over L) with the data offset of its seed only, so the
+        ranks agree. It writes fp32 with a zero output bias; ``bo`` is
+        added after the split over L, so that under sequence parallelism
+        each rank's ``bo`` sees its rows, as every layer parameter
+        does."""
+        cfg = self.cfg
+        x = col.unsplit(hidden, cfg.mesh) if sp else hidden
+        kwargs = dict(bias=attention_bias, segment_ids=segment_ids, out_dtype=torch.float32)
+        zero = torch.zeros_like(w["bo"])
+        if "wqkv32" in w:  # a training set
+            out = self_attention_train(
+                self.impl, x, dict(w, bo=zero), cfg.num_attention_heads,
+                dropout_rate=cfg.dropout, dropout_seed=tp.replicated_seed(seed, cfg.mesh),
+                **kwargs)
+        else:
+            out = self_attention(self.impl, x, w["wqkv"], w["bqkv"], w["wo"], zero,
+                                 cfg.num_attention_heads, **kwargs)
+        if sp:
+            out = col.split(out, cfg.mesh)
+        return (out + w["bo"].float()).to(cfg.dtype)
 
 
 def _ln_fns(impl: str, cfg: AlbertConfig) -> tuple:
@@ -371,13 +539,6 @@ def _ln_fns(impl: str, cfg: AlbertConfig) -> tuple:
         logger.warning("the LayerNorm runs its plain version: %s", reason)
         return plain, plain
     return dropout_add_layernorm, dropout_add_layernorm_train
-
-
-def _add_layernorm(fns: tuple, x, residual, ln: dict, eps: float, train: bool = False,
-                   seed=None, rate: float = 0.0):
-    """Dropout + residual add + LayerNorm through ``fns`` (:func:`_ln_fns`):
-    its serving function, or with ``train`` its training one."""
-    return fns[train](x, residual, ln["g"], ln["b"], seed=seed, rate=rate, eps=eps)
 
 
 class AlbertLayer(nn.Module):
@@ -414,15 +575,23 @@ class AlbertLayer(nn.Module):
 
     def forward(self, hidden, attention_bias, segment_ids, w: dict, seeds=None):
         """``seeds`` (attention, first LN, second LN) makes it the
-        training forward; None the serving one."""
-        dtype = self.cfg.dtype
+        training forward; None the serving one. Under tensor parallelism
+        ``ffn`` is column-parallel and ``ffn_output`` row-parallel."""
+        cfg = self.cfg
+        dtype, mesh, m = cfg.dtype, cfg.mesh, cfg.tp_size
+        sp = cfg.sp_active(hidden.shape[1] * m)
         attn_out = self.attention(hidden, attention_bias, segment_ids, w["attention"], seeds)
-        ffn = self.act(_linear(attn_out, w["ffn"], dtype))
-        ffn = _linear(ffn, w["ffn_output"], dtype)
-        return _add_layernorm(
-            self.attention.ln_fns, ffn, attn_out, w["ln"], self.cfg.layer_norm_eps,
-            seeds is not None, None if seeds is None else seeds[2], self.cfg.dropout,
-        )
+        if m > 1:
+            ffn = self.act(_linear(tp.enter(attn_out, mesh, sp), w["ffn"], dtype))
+            out = w["ffn_output"]
+            ffn = _row_parallel(ffn, out["w"], out["b"], cfg, sp)
+        else:
+            ffn = self.act(_linear(attn_out, w["ffn"], dtype))
+            ffn = _linear(ffn, w["ffn_output"], dtype)
+        return tp.tp_dropout_add_layernorm(
+            mesh, ffn, attn_out, w["ln"]["g"], w["ln"]["b"],
+            None if seeds is None else seeds[2], cfg.dropout, cfg.layer_norm_eps, sp=sp,
+            fn=self.attention.ln_fns[seeds is not None])
 
 
 class AlbertLayerGroup(nn.Module):
@@ -466,8 +635,12 @@ class AlbertEncoder(nn.Module):
         arguments, so the recomputation draws the same dropout masks
         (Philox for the attention, ``tl.rand`` for the LayerNorm) and
         needs no saved RNG state."""
-        hidden = _linear(embeddings, w["mapping"], self.cfg.dtype)
-        for i in range(self.cfg.num_hidden_layers):
+        cfg = self.cfg
+        hidden = _linear(embeddings, w["mapping"], cfg.dtype)
+        sp = cfg.sp_active(hidden.shape[1])
+        if sp:  # the layers keep this rank's L/m rows between their regions
+            hidden = col.split(hidden, cfg.mesh)
+        for i in range(cfg.num_hidden_layers):
             args = (hidden, attention_bias, segment_ids, w["layer"],
                     None if seeds is None else seeds[i])
             if seeds is not None and self.cfg.remat:
@@ -475,7 +648,7 @@ class AlbertEncoder(nn.Module):
                                     preserve_rng_state=False)
             else:
                 hidden = self.layer(*args)
-        return hidden
+        return col.unsplit(hidden, cfg.mesh) if sp else hidden
 
 
 class AlbertModel(nn.Module):
@@ -627,16 +800,19 @@ class MultiTaskModel(PhonemeOnlyModel):
         return phoneme, _head(self.token_predictor, hidden, self.cfg.dtype)
 
 
-def build_model(params, mixed_precision: str = "bf16", remat: bool = False) -> PhonemeOnlyModel:
+def build_model(params, mixed_precision: str = "bf16", remat: bool = False,
+                mesh=None) -> PhonemeOnlyModel:
     """The counterpart of ``pl_bert_tpu/models/albert.py::build_model``
     (:609-621): phoneme-only unless ``num_token_vocab`` is set, then
     :class:`MultiTaskModel`; ``params`` has ``ModelParams``' attribute
-    names; ``remat`` recomputes each layer application in the backward.
-    Parameters are created with torch's default init;
+    names; ``remat`` recomputes each layer application in the backward;
+    ``mesh`` (``parallel/mesh.py``) the cell this rank runs. Parameters
+    are created full, with torch's default init
+    (``parallel.mesh.shard_model`` keeps this rank's slices);
     :func:`init_params` gives the JAX package's initial distribution, and
     ``export/bridge.py`` loads JAX's own."""
     dtype = torch.bfloat16 if mixed_precision in ("bf16", "fp16") else torch.float32
-    cfg = AlbertConfig.from_params(params, dtype=dtype, remat=remat)
+    cfg = AlbertConfig.from_params(params, dtype=dtype, remat=remat, mesh=mesh)
     if getattr(params, "num_token_vocab", 0) > 0:
         return MultiTaskModel(cfg, params.vocab_size, params.num_token_vocab)
     return PhonemeOnlyModel(cfg, params.vocab_size)

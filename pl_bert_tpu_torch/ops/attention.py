@@ -133,23 +133,25 @@ def round_to(w, dtype):
 
 def self_attention_train(
     impl: str, hidden, w: dict, num_heads: int, bias=None, segment_ids=None,
-    dropout_rate: float = 0.0, dropout_seed=None,
+    dropout_rate: float = 0.0, dropout_seed=None, out_dtype=None,
 ):
     """The attention block of a training forward through ``impl``'s path.
     ``w`` is a training weight set (``AlbertSelfAttention.train_weights``):
     fp32 ``wqkv32``/``bqkv``/``wo32``/``bo`` and the compute-dtype copies
-    ``wqkv``/``wo``. Both paths drop the same attention probabilities."""
+    ``wqkv``/``wo``. Both paths drop the same attention probabilities.
+    ``out_dtype``: the compute dtype (default), or fp32 (a
+    tensor-parallel shard's partials)."""
     from pl_bert_tpu_torch.ops import attention_block as ab
 
     if impl == "block":
         return ab.attention_block_train(
             hidden, w["wqkv32"], w["bqkv"], w["wo32"], w["bo"], w["wqkv"], w["wo"],
             num_heads, bias=bias, segment_ids=segment_ids, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed,
+            dropout_seed=dropout_seed, out_dtype=out_dtype,
         )
     cdt = hidden.dtype
     return ab.attention_block_plain(
         hidden, round_to(w["wqkv32"], cdt), w["bqkv"], round_to(w["wo32"], cdt), w["bo"],
         num_heads, bias=bias, segment_ids=segment_ids, dropout_rate=dropout_rate,
-        dropout_seed=dropout_seed,
+        dropout_seed=dropout_seed, out_dtype=out_dtype,
     )

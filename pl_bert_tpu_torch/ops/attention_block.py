@@ -51,8 +51,9 @@ Differences from the TPU kernels, all deliberate:
   [B, H, L] arrays, and q/k/v and the context as the [B·L, 3P] and
   [B·L, P] tensors the forward writes anyway (the TPU: ``md`` [B,G,L,8]
   and q2/k2/v2/o2);
-- the kernels write the compute dtype: on a CUDA tensor an ``out_dtype``
-  other than ``hidden.dtype`` raises.
+- the kernels write the compute dtype, or fp32 (the tensor-parallel
+  shard's partial output, ``pl_bert_tpu/parallel/tp.py:101``): on a CUDA
+  tensor any other ``out_dtype`` raises.
 
 Each kernel has a plain PyTorch version with the TPU kernel's rounding
 points beside it; a wrapper takes the plain version for CPU tensors only.
@@ -219,13 +220,9 @@ def attention_block_packed(
             dropout_rate=dropout_rate, dropout_seed=dropout_seed,
         )
     _check_device(hidden)
-    if out_dtype not in (None, hidden.dtype):
-        raise NotImplementedError(
-            f"attention_block kernel writes {hidden.dtype}; out_dtype {out_dtype} is not built"
-        )
     bias_row, seg_row = rows(bias, segment_ids, *hidden.shape[:2])
     out, _ = _launch_fwd(hidden, wqkv, bqkv, wo, bo, num_heads, bias_row, seg_row,
-                         dropout_rate, dropout_seed, save=False)
+                         dropout_rate, dropout_seed, save=False, out_dtype=out_dtype)
     return out
 
 
@@ -248,20 +245,20 @@ def attention_block_plain(
 
 
 def train_forward(hidden, wqkv, bqkv, wo, bo, num_heads: int, bias_row=None,
-                  seg_row=None, dropout_rate: float = 0.0, dropout_seed=None):
+                  seg_row=None, dropout_rate: float = 0.0, dropout_seed=None, out_dtype=None):
     """The training forward (K3): ``(out [B, L, E], saved)`` with saved
     = ``(qkv [B·L, 3P], ctx [B·L, P], m [B, H, L], l [B, H, L])``, what
-    :func:`train_backward` needs. ``bias_row``/``seg_row`` as made by
-    :func:`rows`. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernels or raises; a head_dim the kernels are not built
-    for raises on either."""
+    :func:`train_backward` needs; ``out`` in ``out_dtype`` (the compute
+    dtype, or fp32). ``bias_row``/``seg_row`` as made by :func:`rows`. A
+    CPU tensor takes the plain version; a CUDA tensor launches the kernels
+    or raises; a head_dim the kernels are not built for raises on either."""
     _head_dim(wo.shape[0], num_heads)
     if hidden.device.type == "cpu":
         return train_forward_plain(hidden, wqkv, bqkv, wo, bo, num_heads, bias_row,
-                                   seg_row, dropout_rate, dropout_seed)
+                                   seg_row, dropout_rate, dropout_seed, out_dtype=out_dtype)
     _check_device(hidden)
     return _launch_fwd(hidden, wqkv, bqkv, wo, bo, num_heads, bias_row, seg_row,
-                       dropout_rate, dropout_seed, save=True)
+                       dropout_rate, dropout_seed, save=True, out_dtype=out_dtype)
 
 
 def _scores(qkv, num_heads: int, bias_row, seg_row, B: int, L: int):
@@ -449,14 +446,17 @@ class AttentionBlockFunction(torch.autograd.Function):
     compute-dtype copies ``wqkv``/``wo`` (no gradient), made once per
     model forward. The weight gradients come back in fp32, as in JAX
     where the cast sits inside the custom VJP (:544, :630-633), so
-    autograd sums them over the layer's applications in fp32."""
+    autograd sums them over the layer's applications in fp32. The output
+    is in ``out_dtype`` (the compute dtype, or fp32 for a tensor-parallel
+    shard); the backward casts its cotangent to the compute dtype, as
+    ``_block_bwd`` does (:594)."""
 
     @staticmethod
     def forward(ctx, hidden, wqkv32, bqkv32, wo32, bo32, wqkv, wo, bias_row, seg_row,
-                num_heads, dropout_rate, dropout_seed):
+                num_heads, dropout_rate, dropout_seed, out_dtype=None):
         out, saved = train_forward(
             hidden, wqkv, bqkv32, wo, bo32, num_heads, bias_row, seg_row,
-            dropout_rate, dropout_seed,
+            dropout_rate, dropout_seed, out_dtype=out_dtype,
         )
         ctx.save_for_backward(hidden, wqkv, wo, bias_row, seg_row, *saved)
         ctx.args = (num_heads, dropout_rate, dropout_seed)
@@ -476,23 +476,24 @@ class AttentionBlockFunction(torch.autograd.Function):
         dwqkv = x2.T @ dq32
         dwo = saved[1].float().T @ d2
         return (dx, dwqkv, dq32.sum(0), dwo, d2.sum(0),
-                None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 def attention_block_train(hidden, wqkv32, bqkv32, wo32, bo32, wqkv, wo, num_heads: int,
                           bias=None, segment_ids=None, dropout_rate: float = 0.0,
-                          dropout_seed=None):
+                          dropout_seed=None, out_dtype=None):
     """The attention block with gradients through K3/K4. The fp32
     parameters come in the kernel layout (see :func:`pack_weights`);
     ``wqkv``/``wo`` are their compute-dtype copies (``hidden.dtype``),
-    made once per model forward. Returns [B, L, E] in the compute dtype."""
+    made once per model forward. Returns [B, L, E] in ``out_dtype`` (the
+    compute dtype by default, or fp32)."""
     B, L, _ = hidden.shape
     bias_row, seg_row = rows(bias, segment_ids, B, L)
     if dropout_seed is None:
         dropout_rate = 0.0
     return AttentionBlockFunction.apply(
         hidden, wqkv32, bqkv32, wo32, bo32, wqkv, wo, bias_row, seg_row,
-        num_heads, float(dropout_rate), dropout_seed,
+        num_heads, float(dropout_rate), dropout_seed, out_dtype,
     )
 
 
@@ -558,12 +559,17 @@ def _check_tma(width: int, **tensors) -> None:
 
 
 def _launch_fwd(hidden, wqkv, bqkv, wo, bo, num_heads, bias_row, seg_row, rate, seed,
-                save: bool):
+                save: bool, out_dtype=None):
     B, L, E = hidden.shape
     P = wo.shape[0]
     H = num_heads
     _head_dim(P, H)
     cdt, dev = hidden.dtype, hidden.device
+    out_dtype = out_dtype or cdt
+    if out_dtype not in (cdt, torch.float32):
+        raise NotImplementedError(
+            f"attention_block kernel writes {cdt} or float32; out_dtype {out_dtype} is not built"
+        )
     _expect(dev, wqkv=(wqkv, (E, 3 * P), cdt), bqkv=(bqkv, (3 * P,), torch.float32),
             wo=(wo, (P, E), cdt), bo=(bo, (E,), torch.float32))
     _check_rows(dev, B, L, bias_row, seg_row)
@@ -572,17 +578,18 @@ def _launch_fwd(hidden, wqkv, bqkv, wo, bo, num_heads, bias_row, seg_row, rate, 
         _check_tma(E, x=x, wqkv=wqkv, wo=wo)
     qkv = torch.empty((B * L, 3 * P), dtype=cdt, device=dev)
     ctx = torch.empty((B * L, P), dtype=cdt, device=dev)
-    out = torch.empty((B, L, E), dtype=cdt, device=dev)
+    out = torch.empty((B, L, E), dtype=out_dtype, device=dev)
     m = l = None
     if save:
         m = torch.empty((B, H, L), dtype=torch.float32, device=dev)
         l = torch.empty((B, H, L), dtype=torch.float32, device=dev)
-    fn = _entry("plbt_attention_block_fwd", 12, 6, _DROPOUT_ARGTYPES)
+    fn = _entry("plbt_attention_block_fwd", 12, 7, _DROPOUT_ARGTYPES)
     with torch.cuda.device(dev):
         status = fn(
             _ptr(x), _ptr(wqkv), _ptr(bqkv), _ptr(wo), _ptr(bo), _ptr(bias_row),
             _ptr(seg_row), _ptr(qkv), _ptr(ctx), _ptr(out), _ptr(m), _ptr(l),
-            B, L, E, P, H, _DTYPE_CODES[cdt], *_dropout_args(rate, seed), _stream(dev),
+            B, L, E, P, H, _DTYPE_CODES[cdt], int(out_dtype != cdt),
+            *_dropout_args(rate, seed), _stream(dev),
         )
     build.check(status, "attention_block kernel")
     (LAUNCHES_TRAIN if save else LAUNCHES).add()

@@ -234,31 +234,35 @@ def gather_valid(hidden, labels, valid, capacity: int):
         return h, labels.gather(1, idx), valid.gather(1, idx)
 
 
-def fits_capacity(valid, capacity: int) -> bool:
+def fits_capacity(valid, capacity: int, max_over=None) -> bool:
     """Whether every row's valid positions fit the gather: one read of
     the largest count back to the host (the JAX package decides on the
-    device, with ``lax.cond``)."""
+    device, with ``lax.cond``). ``max_over`` (int → int) takes that count's
+    maximum over the data-parallel ranks, so every rank takes the branch
+    JAX's global ``lax.cond`` takes."""
     with record_function("lm_head.capacity_read"):
-        fits = int(valid.sum(dim=1).max()) <= capacity
+        top = int(valid.sum(dim=1).max())
+        fits = (top if max_over is None else max_over(top)) <= capacity
     (GATHERED if fits else FALLBACKS).add()
     return fits
 
 
 def masked_lm_loss(hidden, weight, bias, labels, mask_positions, lengths=None,
-                   capacity: int = 192, chunk_size: int = 64, fused: bool = False):
+                   capacity: int = 192, chunk_size: int = 64, fused: bool = False,
+                   max_over=None):
     """Large-vocabulary masked CE that projects only each row's valid
     masked positions, gathered up to ``capacity`` of them (JAX
     :268-326). If any row holds more, the exact full-length path runs
     instead, so the value never depends on the capacity;
     ``capacity <= 0`` or ``>= L`` always runs the full-length path.
     ``fused`` swaps the chunked CE for :func:`masked_lm_loss_fused` on
-    both paths."""
+    both paths; ``max_over`` as in :func:`fits_capacity`."""
     L = hidden.shape[1]
     inner = masked_lm_loss_fused if fused else masked_lm_loss_chunked
     if capacity <= 0 or capacity >= L:
         return inner(hidden, weight, bias, labels, mask_positions, lengths, chunk_size)
     valid = valid_positions(mask_positions, lengths, L)
-    if not fits_capacity(valid, capacity):
+    if not fits_capacity(valid, capacity, max_over):
         return inner(hidden, weight, bias, labels, valid, None, chunk_size)
     h, lab, val = gather_valid(hidden, labels, valid, capacity)
     return inner(h, weight, bias, lab, val, None, min(chunk_size, capacity))
@@ -266,7 +270,7 @@ def masked_lm_loss(hidden, weight, bias, labels, mask_positions, lengths=None,
 
 @torch.no_grad()
 def masked_lm_metrics(hidden, weight, bias, labels, mask_positions, lengths=None,
-                      capacity: int = 192, chunk_size: int = 64):
+                      capacity: int = 192, chunk_size: int = 64, max_over=None):
     """Eval-only (loss, argmax accuracy) of the large-vocabulary head in
     one chunked pass, with :func:`masked_lm_loss`'s gather and averaging
     (JAX :329-419): each chunk's logits feed both the CE and the argmax.
@@ -276,7 +280,7 @@ def masked_lm_metrics(hidden, weight, bias, labels, mask_positions, lengths=None
     valid = valid_positions(mask_positions, lengths, L)
     w_c, b_c = weight.to(hidden.dtype), bias.to(hidden.dtype)
     h, lab, val = hidden, labels, valid
-    if 0 < capacity < L and fits_capacity(valid, capacity):
+    if 0 < capacity < L and fits_capacity(valid, capacity, max_over):
         h, lab, val = gather_valid(hidden, labels, valid, capacity)
     c = chunk_size_for(h.shape[1], chunk_size)
     sums = torch.zeros(B, device=hidden.device)

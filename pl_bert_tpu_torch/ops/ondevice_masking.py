@@ -30,14 +30,20 @@ def mask_batch(
     lengths: torch.Tensor,  # int [B]
     generator: torch.Generator,
     params: MaskingParams,
+    rows: tuple[int, int] = (0, 1),
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """→ (masked_ids [B, L], mask_positions bool [B, L]). The uniforms
-    are drawn on ``generator``'s device (the tensors' own, for no copy)."""
+    are drawn on ``generator``'s device (the tensors' own, for no copy).
+    ``rows`` (d, n): the batch is slice d of a global batch of n such
+    slices (data parallelism); the uniforms are drawn at the global shape
+    and sliced, so every rank masks its rows as one process masks the
+    global batch (``jax.random``'s draws depend on the shape only)."""
     B, L = label_ids.shape
     dev = label_ids.device
+    d, n = rows
     u_sel, u_act, u_draw = torch.rand(
-        (3, B, L), generator=generator, device=generator.device
-    ).to(dev)
+        (3, B * n, L), generator=generator, device=generator.device
+    )[:, d * B:(d + 1) * B].to(dev)
 
     # word-level decisions (word ids are < L by construction)
     selected_w = u_sel < params.word_pred_prob

@@ -23,6 +23,13 @@ and renamed, so a crash never leaves a truncated ``step_N.pth``.
 
 JAX's loaders return new trees; :func:`load_checkpoint` and
 :func:`load_params_only` fill the model and the optimizer state in place.
+
+On a (data, model) mesh the file is the same one a single device writes:
+:func:`gather_state` all-gathers the tensor-parallel parameter and moment
+shards over the model group and the ZeRO-1 moment slices over the data
+group (every rank takes part; rank 0 writes), and the loaders cut the
+full tensors back to this rank's shard and slice, so a checkpoint
+resumes on any (data, model).
 """
 
 from __future__ import annotations
@@ -32,6 +39,9 @@ import re
 import threading
 
 import torch
+
+from pl_bert_tpu_torch.parallel import collectives as col
+from pl_bert_tpu_torch.parallel.mesh import param_spec, shard, zero1_shard
 
 _STEP_RE = re.compile(r"^step_(\d+)\.pth$")
 
@@ -178,6 +188,33 @@ class AsyncCheckpointWriter:
         self._thread.start()
 
 
+@torch.no_grad()
+def gather_state(model: torch.nn.Module, opt_state, mesh):
+    """``(state dict, OptState)`` with full tensors, from this rank's
+    shards (the model's parameters, and the moments' ZeRO-1 slices of
+    them): the ones a single device holds. Every rank of the mesh must
+    call it."""
+    from pl_bert_tpu_torch.training.train_step import OptState
+
+    def full(name: str, t: torch.Tensor) -> torch.Tensor:
+        dim = param_spec(name)
+        if mesh.model > 1 and dim is not None:
+            return col.all_gather(t, mesh.model_group, dim)
+        return t
+
+    params = {n: full(n, t.detach()) for n, t in model.state_dict().items()}
+    if opt_state is None:
+        return params, None
+    parts = opt_state.zero1 or {}
+    moments = {}
+    for name, pair in opt_state.moments.items():
+        dim = parts.get(name)
+        if dim is not None:
+            pair = tuple(col.all_gather(t, mesh.data_group, dim) for t in pair)
+        moments[name] = tuple(full(name, t) for t in pair)
+    return params, OptState(moments, opt_state.count)
+
+
 def _strip_ddp_prefix(state_dict: dict) -> dict:
     # reference: train.py:98 — DDP wraps keys as 'module.<name>'
     return {
@@ -190,17 +227,21 @@ def _load(path: str) -> dict:
     return torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)
 
 
-def _fill_params(model: torch.nn.Module, net: dict) -> None:
+def _fill_params(model: torch.nn.Module, net: dict, mesh=None) -> None:
+    net = _strip_ddp_prefix(net)
+    if mesh is not None:
+        net = {n: shard(n, t, mesh) for n, t in net.items()}
     with torch.no_grad():
-        model.load_state_dict(_strip_ddp_prefix(net), strict=True)
+        model.load_state_dict(net, strict=True)
 
 
-def load_checkpoint(path: str, model: torch.nn.Module, opt_state) -> dict:
+def load_checkpoint(path: str, model: torch.nn.Module, opt_state, mesh=None) -> dict:
     """Restore ``model``'s parameters and ``opt_state`` (moments and
     update count) in place from a ``step_N.pth``; returns the meta
-    ``{'step', 'epoch', 'batch_in_epoch'}``."""
+    ``{'step', 'epoch', 'batch_in_epoch'}``. On a ``mesh``, each full
+    tensor is cut to this rank's shard (and ZeRO-1 slice)."""
     ckpt = _load(path)
-    _fill_params(model, ckpt["net"])
+    _fill_params(model, ckpt["net"], mesh)
     state = (ckpt.get("optimizer") or {}).get("state") or {}
     names = [n for n, _ in model.named_parameters()]
     if len(state) != len(names):
@@ -213,8 +254,13 @@ def load_checkpoint(path: str, model: torch.nn.Module, opt_state) -> dict:
         for i, name in enumerate(names):
             entry = state.get(i, state.get(str(i)))
             mu, nu = opt_state.moments[name]
-            mu.copy_(entry["exp_avg"])
-            nu.copy_(entry["exp_avg_sq"])
+            for dst, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+                src = entry[key]
+                if mesh is not None:
+                    src = shard(name, src, mesh)
+                    if opt_state.zero1 is not None:
+                        src = zero1_shard(name, src, entry[key].shape, mesh)
+                dst.copy_(src)
             count = max(count, int(entry["step"]))
     opt_state.count = count
     return {"step": int(ckpt.get("step", 0)), "epoch": int(ckpt.get("epoch", 0)),
@@ -231,10 +277,12 @@ def load_checkpoint_meta(path: str) -> dict:
     return {"step": 0, "epoch": 0, "batch_in_epoch": 0}
 
 
-def load_params_only(path: str, model: torch.nn.Module) -> None:
+def load_params_only(path: str, model: torch.nn.Module, mesh=None) -> None:
     """Warm-start: restore parameters only, ignore optimizer state
     (reference pretrained_model semantics, train.py:274-276). Accepts a
     training save (``{'net': ...}``: the port's, the reference's, or
-    ``pl_bert_tpu.export.to_torch``'s) or a bare model state dict."""
+    ``pl_bert_tpu.export.to_torch``'s) or a bare model state dict. On a
+    ``mesh``, each tensor is cut to this rank's shard."""
     ckpt = _load(path)
-    _fill_params(model, ckpt["net"] if isinstance(ckpt, dict) and "net" in ckpt else ckpt)
+    _fill_params(model, ckpt["net"] if isinstance(ckpt, dict) and "net" in ckpt else ckpt,
+                 mesh)

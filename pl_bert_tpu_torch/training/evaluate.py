@@ -64,7 +64,7 @@ def _load_config(args: dict) -> Config:
 
 def _score(trainer, ckpt: str) -> dict:
     """Load ``ckpt``'s parameters into the live Trainer and validate."""
-    load_params_only(ckpt, trainer.model)
+    load_params_only(ckpt, trainer.model, trainer.model.cfg.mesh)
     result = trainer.validate()
     if result is None:
         raise SystemExit(

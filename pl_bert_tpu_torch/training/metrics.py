@@ -1,8 +1,8 @@
 """Metrics tracking / logging.
 
 A copy of ``pl_bert_tpu/training/metrics.py`` (``is_main_process``,
-``MetricsLogger``): the port runs one process, so it is always the main
-one.
+``MetricsLogger``); the main process is rank 0 of a ``torch.distributed``
+world, as JAX's is process 0.
 
 Reference contract (reference: train.py:231-240, 392-410): per-step
 phoneme_loss, rolling mean over ``log_interval`` steps, validation loss
@@ -23,8 +23,11 @@ import numpy as np
 
 
 def is_main_process() -> bool:
-    """The port runs single-process, single-card."""
-    return True
+    """Rank 0 of an initialised ``torch.distributed`` world, or the one
+    process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 class MetricsLogger:

@@ -16,7 +16,7 @@ pretraining entry point with the reference's runtime contract
   validation + checkpoint every ``save_interval`` (reference:
   train.py:338-379).
 
-One process, one card: the eager train step of ``train_step.py`` with
+One process a card: the eager train step of ``train_step.py`` with
 the hand-written kernels; the host pipeline (host masking, or packed
 arrays for on-device masking) prefetched on a thread, which also starts
 the host-to-device copy. ``num_token_vocab > 0`` trains the multi-task
@@ -26,12 +26,27 @@ spec, a memory-mapped packed store (``data/packed_store.py``, written by
 ``python -m pl_bert_tpu_torch.preprocess.pipeline --stage pack``), a
 ``records.jsonl`` directory, an HF ``save_to_disk`` directory or an HF
 hub id (``datasets`` is imported only for the last two).
-``remat: true`` recomputes each layer application in the backward. The
-mesh, ZeRO-1 and multi-host initialisation are not ported yet and raise
-(``train_step.check_ported``); ``prng_impl`` is read and ignored.
+``remat: true`` recomputes each layer application in the backward;
+``prng_impl`` is read and ignored.
+
+Several processes (JAX's ``maybe_init_distributed``, :853-888): with
+``PLBERT_DISTRIBUTED=1`` each process joins a ``torch.distributed``
+world — at ``PLBERT_COORDINATOR`` (host:port, a TCP rendezvous) with
+``PLBERT_NUM_PROCESSES`` and ``PLBERT_PROCESS_ID``, or without them from
+the launcher's environment (``torchrun``'s ``env://``) — on ``nccl`` on
+the card (each rank on ``cuda:<rank % cards>``) and ``gloo`` on the
+CPU. ``training_params.data_axis``/``model_axis`` lay the ranks out as a
+(data, model) mesh (``parallel/mesh.py``), with ``zero1`` and
+``model_params.sequence_parallel`` honoured as JAX honours them. Every
+rank builds the same global batch and steps its data slice; rank 0
+alone prints, writes ``metrics.jsonl``, clears stale runs and writes
+the checkpoints (gathered: the file a single device writes).
 
 Run: ``python -m pl_bert_tpu_torch.training.train --config_path
-configs/config.yml --run_name myrun [--device cpu]``.
+configs/config.yml --run_name myrun [--device cpu]``; on two CPU
+processes, e.g. ``PLBERT_DISTRIBUTED=1 PLBERT_COORDINATOR=localhost:29500
+PLBERT_NUM_PROCESSES=2 PLBERT_PROCESS_ID=<0|1> python -m
+pl_bert_tpu_torch.training.train ... --device cpu``, one per rank.
 """
 
 from __future__ import annotations
@@ -43,6 +58,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pl_bert_tpu_torch.config import Config
 from pl_bert_tpu_torch.data.packed_store import (
@@ -54,15 +70,18 @@ from pl_bert_tpu_torch.data.packed_store import (
 from pl_bert_tpu_torch.data.pipeline import build_dataloader, prefetch, to_device
 from pl_bert_tpu_torch.models.albert import build_model, init_params
 from pl_bert_tpu_torch.preprocess.shard_engine import load_processed_dataset
+from pl_bert_tpu_torch.parallel import collectives as col
+from pl_bert_tpu_torch.parallel.mesh import local_rows, make_mesh, shard_model
 from pl_bert_tpu_torch.training.checkpoint import (
     AsyncCheckpointWriter,
     checkpoint_path,
     find_latest_checkpoint,
+    gather_state,
     load_checkpoint,
     load_params_only,
     save_checkpoint,
 )
-from pl_bert_tpu_torch.training.metrics import MetricsLogger
+from pl_bert_tpu_torch.training.metrics import MetricsLogger, is_main_process
 from pl_bert_tpu_torch.training.train_step import (
     TrainState,
     batch_to_arrays,
@@ -85,13 +104,20 @@ def parse_args(argv=None) -> dict:
 def setup_config_and_directories(args: dict, config_path: str):
     """Resume-vs-fresh run directory handling (reference semantics):
     ``(config, log_dir, resuming)``. The config copy is written under a
-    temporary name and renamed, so a crash never leaves half a config."""
+    temporary name and renamed, so a crash never leaves half a config.
+    Under several processes rank 0's view of the directory decides for
+    every rank (JAX :88-94), rank 0 alone clears and copies, and the
+    others wait for it."""
     original = Config.load(config_path)
     log_dir = os.path.join(original.training_params.output_dir, args["run_name"])
     config_copy = os.path.join(log_dir, os.path.basename(config_path))
 
     resuming = os.path.exists(log_dir) and os.path.exists(config_copy)
-    if not resuming:
+    if dist.is_initialized():
+        flag = [resuming]
+        dist.broadcast_object_list(flag, src=0)
+        resuming = bool(flag[0])
+    if not resuming and is_main_process():
         if os.path.exists(log_dir):
             # stale run without a config copy: clear EVERY artifact the
             # old run left (a surviving metrics.jsonl would append the
@@ -107,6 +133,8 @@ def setup_config_and_directories(args: dict, config_path: str):
         tmp = config_copy + ".tmp"
         shutil.copy(config_path, tmp)
         os.replace(tmp, config_copy)
+    if dist.is_initialized():
+        dist.barrier()
     if resuming:
         return Config.load(config_copy), log_dir, True
     return original, log_dir, False
@@ -285,10 +313,11 @@ def _adopt_packed_store(store, tp, dp):
         )
     if isinstance(store, MemmapPackedDataset):
         store.seed = tp.seed  # the per-epoch crop stream keys off it
-    print(
-        f"memory-mapped packed store: {meta['num_rows']} rows in "
-        f"{len(meta['shards'])} shards from {store.path}"
-    )
+    if is_main_process():
+        print(
+            f"memory-mapped packed store: {meta['num_rows']} rows in "
+            f"{len(meta['shards'])} shards from {store.path}"
+        )
     return store
 
 
@@ -345,6 +374,8 @@ class Trainer:
             raise RuntimeError(
                 "no CUDA device: the trainer runs on the card unless asked for --device cpu"
             )
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.config = config
         self.log_dir = log_dir
         self.resuming = resuming
@@ -355,8 +386,23 @@ class Trainer:
             config.dataset_params,
         )
 
-        self.model = init_params(build_model(mp, tp.mixed_precision, remat=tp.remat),
-                                 seed=tp.seed)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if tp.num_process != world and is_main_process():
+            # a reference-compat key: the process count comes from the
+            # launch, not the config (JAX :321-329)
+            print(f"WARNING: training_params.num_process={tp.num_process} is ignored; "
+                  f"the world has {world} processes (launch with PLBERT_DISTRIBUTED=1 to "
+                  "change it)", flush=True)
+        self.mesh = mesh = make_mesh(tp.data_axis, tp.model_axis)
+        if tp.batch_size % mesh.data:
+            raise ValueError(f"batch_size {tp.batch_size} must be divisible by the data axis "
+                             f"size {mesh.data}")
+        mesh = None if mesh.size == 1 else mesh
+        # every rank builds the same full parameters, then keeps its shard
+        self.model = init_params(build_model(mp, tp.mixed_precision, remat=tp.remat,
+                                             mesh=mesh), seed=tp.seed)
+        if mesh is not None:
+            shard_model(self.model, mesh)
         self.model.to(self.device)
         self.tx = make_optimizer(tp)
         self.use_token_ids = mp.num_token_vocab > 0
@@ -372,7 +418,7 @@ class Trainer:
             )
         warning = self.use_token_ids and lm_head_capacity_warning(tp, dp)
         if warning:
-            print(warning, flush=True)
+            self._print(warning)
 
         if dataset is None:
             dataset = load_training_dataset(tp.training_dataset, tp.split,
@@ -435,7 +481,7 @@ class Trainer:
                 _check_token_vocab(max_tid, mp.num_token_vocab)
             if dp.sequence_packing:
                 n_samples = self.packed.meta["num_samples"] if is_store else len(dataset)
-                print(
+                self._print(
                     f"sequence packing: {n_samples} samples → "
                     f"{len(self.packed)} rows "
                     f"({self.packed.packing_efficiency:.0%} token occupancy)"
@@ -472,25 +518,25 @@ class Trainer:
             if self.use_token_ids:
                 _check_token_vocab(_max_token_id(dataset), mp.num_token_vocab)
 
-        opt_state = None if eval_only else self.tx.init(self.model)
+        opt_state = None if eval_only else self.tx.init(self.model, mesh, tp.zero1)
         self.state = TrainState(self.model, opt_state, 0)
         self.start_epoch = 0
         self.start_batch = 0
         self.current_step = 0
 
         if mp.pretrained_model:
-            print(f"Loading pretrained model from: {mp.pretrained_model}")
-            load_params_only(mp.pretrained_model, self.model)
+            self._print(f"Loading pretrained model from: {mp.pretrained_model}")
+            load_params_only(mp.pretrained_model, self.model, mesh)
 
         found, latest = find_latest_checkpoint(log_dir)
         if found and resuming:
             path = checkpoint_path(log_dir, latest)
-            meta = load_checkpoint(path, self.model, self.state.opt_state)
+            meta = load_checkpoint(path, self.model, self.state.opt_state, mesh)
             self.state.step = meta["step"]
             self.current_step = meta["step"]
             self.start_epoch = meta["epoch"]
             self.start_batch = meta["batch_in_epoch"]
-            print(f"Checkpoint {path} loaded.")
+            self._print(f"Checkpoint {path} loaded.")
 
         self.train_step = None if eval_only else make_train_step(
             self.model, self.tx, grad_accum=tp.grad_accum_steps, seed=tp.seed,
@@ -507,13 +553,20 @@ class Trainer:
 
         self.profiler = maybe_profile()
 
-    def _put(self, batch) -> dict:
-        """The batch's arrays on the device (the grapheme ``token_ids``
-        only for the multi-task model); called inside the prefetch
-        thread, so the copy overlaps the previous step."""
+    @staticmethod
+    def _print(*args) -> None:
+        if is_main_process():
+            print(*args, flush=True)
+
+    def _put(self, batch, axis: int = 0) -> dict:
+        """This rank's data slice (``axis``: the batch axis) of the global
+        batch's arrays, on the device (the grapheme ``token_ids`` only for
+        the multi-task model); called inside the prefetch thread, so the
+        copy overlaps the previous step."""
         arrays = batch if isinstance(batch, dict) else batch_to_arrays(batch)
         return to_device(
-            {k: v for k, v in arrays.items() if k != "token_ids" or self.use_token_ids},
+            {k: local_rows(v, self.mesh, axis) for k, v in arrays.items()
+             if k != "token_ids" or self.use_token_ids},
             self.device,
         )
 
@@ -621,10 +674,14 @@ class Trainer:
         if not crash_at or self.current_step != crash_at:
             return
         marker = os.path.join(self.log_dir, ".crash_injected")
-        if os.path.exists(marker):
+        fired = os.path.exists(marker)
+        if dist.is_initialized():
+            dist.barrier()  # every rank reads the marker before rank 0 writes it
+        if fired:
             return
-        with open(marker, "w"):
-            pass
+        if is_main_process():
+            with open(marker, "w"):
+                pass
         print(f"fault injection: dying at step {crash_at}", flush=True)
         os._exit(17)
 
@@ -669,11 +726,10 @@ class Trainer:
 
         val = self.validate()
         if val is None:
-            print(
+            self._print(
                 "Validation skipped: no usable validation batches "
                 "(95/5 split smaller than a batch, or masking "
                 "selected zero positions in every batch)",
-                flush=True,
             )
         else:
             self.metrics.log_validation(self.current_step, self.start_epoch, *val,
@@ -684,14 +740,14 @@ class Trainer:
         epoch = max(self.start_epoch, 1)
         start_batch = self.start_batch if self.start_epoch > 0 else 0
         while epoch <= tp.max_epochs:
-            print(f"Starting epoch {epoch}", flush=True)
+            self._print(f"Starting epoch {epoch}")
             batch_idx = start_batch
             it = self._train_batches(epoch=epoch, start_batch=start_batch)
             start_batch = 0
             accum = tp.grad_accum_steps
             if accum > 1:
                 feed = (
-                    (self._put(b), c)
+                    (self._put(b, axis=1), c)
                     for b, c in self._group_micro(it, accum)
                 )
             else:
@@ -739,22 +795,67 @@ class Trainer:
         return self.current_step
 
     def _save(self, epoch: int, batch_idx: int) -> None:
+        """Write step_N.pth; on a mesh every rank gathers the full tensors,
+        rank 0 writes them, and every rank waits for the file."""
         tp = self.config.training_params
         save = save_checkpoint if self.ckpt_writer is None else self.ckpt_writer.submit
-        save(
-            self.log_dir, self.current_step, self.model.state_dict(),
-            self.state.opt_state, epoch, batch_idx, keep=tp.keep_checkpoints,
-        )
+        params, opt_state = self.model.state_dict(), self.state.opt_state
+        if self.mesh.size > 1:
+            params, opt_state = gather_state(self.model, opt_state, self.mesh)
+        if is_main_process():
+            save(self.log_dir, self.current_step, params, opt_state, epoch, batch_idx,
+                 keep=tp.keep_checkpoints)
+        if self.mesh.size > 1:
+            if self.ckpt_writer is not None:
+                self.ckpt_writer.wait()
+            dist.barrier()
+
+
+def maybe_init_distributed(device: str = "cuda") -> None:
+    """Join a ``torch.distributed`` world when ``PLBERT_DISTRIBUTED=1``
+    (JAX :853-888): at ``PLBERT_COORDINATOR`` (host:port) with
+    ``PLBERT_NUM_PROCESSES`` and ``PLBERT_PROCESS_ID`` (all three, or
+    JAX's error), else from the launcher's ``env://`` variables. The
+    backend is ``nccl`` on the card and ``gloo`` on the CPU;
+    ``PLBERT_DIST_BACKEND`` overrides it, for one case only: several
+    ranks sharing one card, where NCCL refuses and ``gloo`` (through
+    host memory) checks the sharded step. On the card each rank takes
+    ``cuda:<rank % cards>``."""
+    if os.environ.get("PLBERT_DISTRIBUTED") != "1" or dist.is_initialized():
+        return
+    kwargs: dict = {"init_method": "env://"}
+    if os.environ.get("PLBERT_COORDINATOR"):
+        missing = [k for k in ("PLBERT_NUM_PROCESSES", "PLBERT_PROCESS_ID")
+                   if k not in os.environ]
+        if missing:
+            raise RuntimeError(
+                f"PLBERT_COORDINATOR is set but {' and '.join(missing)} is not — an "
+                "explicit coordinator needs all of PLBERT_COORDINATOR, "
+                "PLBERT_NUM_PROCESSES, PLBERT_PROCESS_ID"
+            )
+        kwargs = dict(init_method=f"tcp://{os.environ['PLBERT_COORDINATOR']}",
+                      world_size=int(os.environ["PLBERT_NUM_PROCESSES"]),
+                      rank=int(os.environ["PLBERT_PROCESS_ID"]))
+    cuda = torch.device(device).type == "cuda"
+    backend = os.environ.get("PLBERT_DIST_BACKEND") or ("nccl" if cuda else "gloo")
+    dist.init_process_group(backend, **kwargs)
+    if cuda:
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+    if is_main_process():
+        print(f"torch.distributed: {dist.get_world_size()} processes over {backend}",
+              flush=True)
 
 
 def train(args: dict | None = None, dataset=None) -> int:
     if args is None:
         args = parse_args()
+    maybe_init_distributed(args.get("device", "cuda"))
     config, log_dir, resuming = setup_config_and_directories(
         args, args["config_path"]
     )
     verb = "Resuming" if resuming else "Starting new"
-    print(f"{verb} training run in '{log_dir}'.", flush=True)
+    if is_main_process():
+        print(f"{verb} training run in '{log_dir}'.", flush=True)
     trainer = Trainer(config, log_dir, resuming, dataset=dataset,
                       device=args.get("device", "cuda"))
     t0 = time.perf_counter()
@@ -765,11 +866,9 @@ def train(args: dict | None = None, dataset=None) -> int:
         # the jsonl handle must flush (Trainer.train already joins the
         # async checkpoint writer on its own way out)
         trainer.metrics.close()
-    print(
-        f"Training completed at step {final_step} "
-        f"({time.perf_counter() - t0:.1f}s)",
-        flush=True,
-    )
+    if is_main_process():
+        print(f"Training completed at step {final_step} "
+              f"({time.perf_counter() - t0:.1f}s)", flush=True)
     return final_step
 
 

@@ -64,6 +64,30 @@ def test_attention_block_kernel_matches_plain(dev, dtype, L, heads, segments):
     _close(out, ref, dtype)
 
 
+@pytest.mark.parametrize("heads", [6, 3])
+def test_block_fp32_output_of_a_tensor_parallel_shard(dev, heads):
+    """K1 and K3 write a shard's fp32 partial output (P = 384 or 192 of
+    E = 768, zero output bias): its plain version's within the bf16
+    tolerance, K1 the same as K3, and rounded to bf16 K3's bf16 output bit
+    for bit (the epilogue stores the sum it would round)."""
+    B, L, E, P = 2, 256, 768, 64 * heads
+    rng = np.random.default_rng(heads)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    x = t(rng.standard_normal((B, L, E)) * 0.5).to(torch.bfloat16)
+    wqkv = t(rng.standard_normal((E, 3 * P)) * 0.05).to(torch.bfloat16)
+    bqkv = t(rng.standard_normal(3 * P) * 0.02)
+    wo = t(rng.standard_normal((P, E)) * 0.05).to(torch.bfloat16)
+    zero = torch.zeros(E, device=dev)
+    out, _ = ab.train_forward(x, wqkv, bqkv, wo, zero, heads, out_dtype=torch.float32)
+    light = ab.attention_block_packed(x, wqkv, bqkv, wo, zero, heads, out_dtype=torch.float32)
+    rounded, _ = ab.train_forward(x, wqkv, bqkv, wo, zero, heads)
+    ref, _ = ab.train_forward_plain(x, wqkv, bqkv, wo, zero, heads, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and torch.equal(light, out)
+    assert torch.equal(out.to(torch.bfloat16), rounded)
+    _close(out, ref, torch.bfloat16)
+
+
 @pytest.mark.parametrize("kwargs", [{"out_dtype": torch.bfloat16}], ids=["out_dtype"])
 def test_attention_block_refuses_what_is_not_built_on_cuda(dev, kwargs):
     """The kernel writes the compute dtype, so no mixed output pair is

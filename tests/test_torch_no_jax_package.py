@@ -6,8 +6,9 @@ builds on the CPU and answers a request, the port's Trainer runs a
 packed run and resumes it, a multi-task run trains and
 ``training/evaluate.py`` scores it, a corpus goes through the pack CLI,
 ``verify_store`` and the elastic launcher into a Trainer run from the
-packed store, and a checkpoint goes through the export CLI into
-``from_hf_export`` and an int8 forward."""
+packed store, a checkpoint goes through the export CLI into
+``from_hf_export`` and an int8 forward, and two ranks over gloo take a
+tensor- and sequence-parallel step with ZeRO-1 through the Trainer."""
 
 import ast
 import subprocess
@@ -72,7 +73,7 @@ def test_every_port_module_and_smoke_import_loads_without_the_jax_package(tmp_pa
                 "data.packed_store", "data.verify_store", "preprocess.shard_engine",
                 "preprocess.pipeline", "training.orchestrate", "runtime",
                 "export.safetensors", "export.to_hf", "export.cli", "ops.quant",
-                "serving.client"):
+                "serving.client", "parallel.mesh", "parallel.tp", "parallel.collectives"):
         assert f"pl_bert_tpu_torch.{new}" in mods, new
     assert "pl_bert_tpu_torch.training.train" in smoke
     assert "pl_bert_tpu_torch.tools" in smoke or "pl_bert_tpu_torch.tools.bench_fused_ln" in smoke
@@ -126,6 +127,54 @@ assert not bad, bad
 print("served")
 '''
     assert _run(code, tmp_path).split() == ["served"]
+
+
+def test_port_two_rank_step_without_the_jax_package(tmp_path):
+    """Two ranks (model 2, sequence parallelism, ZeRO-1 on the 1×2 mesh)
+    train one step through ``training.train.train`` on the CPU, each in an
+    interpreter where the JAX package cannot be imported."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    code = f'''
+import os, yaml
+os.environ.update(PLBERT_DISTRIBUTED="1", PLBERT_COORDINATOR="localhost:{port}",
+                  PLBERT_NUM_PROCESSES="2", PLBERT_PROCESS_ID=RANK)
+from pl_bert_tpu_torch.training.train import train
+
+cfg = {str(tmp_path / "cfg.yml")!r}
+if RANK == "0":
+    raw = {{
+        "training_params": dict(output_dir={str(tmp_path / "runs")!r}, mixed_precision="fp32",
+                                batch_size=4, save_interval=1, num_steps=1, model_axis=2,
+                                zero1=True, training_dataset="synthetic:80:0:3-12"),
+        "dataset_params": dict(max_seq_length=64, ondevice_masking=True),
+        "model_params": dict(hidden_size=128, num_attention_heads=2, intermediate_size=256,
+                             max_position_embeddings=64, num_hidden_layers=2,
+                             embedding_size=32, sequence_parallel=True),
+    }}
+    with open(cfg + ".tmp", "w") as f:
+        yaml.safe_dump(raw, f)
+    os.replace(cfg + ".tmp", cfg)
+while not os.path.exists(cfg):
+    pass
+assert train({{"config_path": cfg, "run_name": "r", "device": "cpu"}}) == 1
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "flax", "orbax", "pl_bert_tpu"))
+assert not bad, bad
+print("stepped")
+'''
+    env = {"PATH": "/usr/bin:/bin", "HOME": str(tmp_path), "PYTHONPATH": str(REPO),
+           "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, "-c", BLOCKER + f"RANK = {str(r)!r}\n" + code],
+                              cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, env=env) for r in range(2)]
+    for p in procs:
+        out = p.communicate(timeout=300)[0]
+        assert p.returncode == 0 and out.split()[-1] == "stepped", out[-4000:]
+    assert (tmp_path / "runs" / "r" / "step_1.pth").exists()
 
 
 def test_port_trainer_runs_and_resumes_without_the_jax_package(tmp_path):

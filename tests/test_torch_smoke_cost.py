@@ -195,3 +195,28 @@ def test_int8_bound_at_the_ffn_shape():
     nbytes = 4096 * 768 * 2 + 2048 * 768 + 4096 * 2048 * 2
     assert smoke.int8_bound(4096, 768, 2048) == pytest.approx(nbytes / 3.35e12 * 1e3)
     assert 2 * 4096 * 768 * 2048 / 1979e12 * 1e3 < nbytes / 3.35e12 * 1e3
+
+
+@pytest.mark.parametrize("kwargs,want", [
+    (dict(data=2, zero1=True), {"data_axis": 2, "model_axis": 1, "zero1": True}),
+    (dict(model=2, impl="pallas", sp=True), {"data_axis": 1, "model_axis": 2, "zero1": False}),
+])
+def test_sharded_config_is_the_flagship_run(tmp_path, kwargs, want):
+    """Phase 22's configs: the flagship widths at L 512, global batch 8,
+    bf16, the mesh asked for; the multi-task one bench.py's head."""
+    from pl_bert_tpu_torch.config import Config
+
+    path = smoke.sharded_config(str(tmp_path / "c.yml"), str(tmp_path / "runs"), **kwargs)
+    config = Config.load(path)
+    tp, mp, dp = config.training_params, config.model_params, config.dataset_params
+    assert {k: getattr(tp, k) for k in want} == want
+    assert (tp.batch_size, tp.mixed_precision, tp.num_steps, dp.max_seq_length) == (
+        8, "bf16", 4, 512)
+    assert (mp.hidden_size, mp.num_attention_heads, mp.intermediate_size,
+            mp.num_hidden_layers, mp.dropout) == (768, 12, 2048, 12, 0.0)
+    assert mp.attention_impl == kwargs.get("impl", "auto")
+    assert mp.sequence_parallel == kwargs.get("sp", False)
+    mt = Config.load(smoke.sharded_config(str(tmp_path / "m.yml"), "o", model=2, steps=2,
+                                          dropout=0.1, multitask=True))
+    assert (mt.model_params.num_token_vocab, mt.training_params.lm_head_capacity,
+            mt.training_params.fused_lm_head) == (60000, 144, True)

@@ -192,14 +192,24 @@ def test_dropout_steps_reproducible_and_pooler_not_decayed(batches, jax_params):
     ("training_params", "model_axis"),
 ])
 def test_not_yet_ported_raises(section, key, tmp_path):
-    """What still waits raises: more than one device. On-device masking,
-    sequence packing, the multi-task head, a packed store directory and
-    remat are ported and pass."""
+    """A mesh the world cannot hold raises make_mesh's ValueError (JAX's
+    message): model_axis 2 on one process. Sequence parallelism over a
+    length the model axis does not divide raises as in JAX. On-device
+    masking, sequence packing, the multi-task head, a packed store
+    directory and remat pass."""
+    from pl_bert_tpu_torch.models.albert import AlbertConfig
+    from pl_bert_tpu_torch.parallel.mesh import Mesh
+
     (tmp_path / "packed_meta.json").write_text("{}")
     value = {"model_axis": 2}[key]
     cfg = Config.from_dict({section: {key: value}})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="model axis 2 does not divide 1 devices"):
         ts.check_ported(cfg)
+    sp = AlbertConfig(hidden_size=128, num_attention_heads=2, intermediate_size=256,
+                      mesh=Mesh(model=2), sequence_parallel=True)
+    assert sp.sp_active(64)
+    with pytest.raises(ValueError, match="seq_len 63 divisible by model_axis 2"):
+        sp.sp_active(63)
     ts.check_ported(Config.from_dict(
         {"training_params": {"training_dataset": str(tmp_path), "remat": True},
          "dataset_params": {"ondevice_masking": True, "sequence_packing": True},
