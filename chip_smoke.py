@@ -2,8 +2,10 @@
 """Drive the PyTorch port's serving path, its training step, its Trainer
 entry point, its multi-task pretraining run (from memory, then from a
 packed store under restart supervision), its deployment path (HF export,
-``--hf_dir`` loading, int8 serving), remat and its sharded step (data,
-tensor and sequence parallelism, ZeRO-1) once on one CUDA card.
+``--hf_dir`` loading, int8 serving), remat, its sharded step (data,
+tensor and sequence parallelism, ZeRO-1, the vocabulary-parallel
+grapheme head) and its text stages from raw Arabic text to a
+production-shape run once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -198,7 +200,10 @@ with random weights made from a fixed seed, in order:
       output rounding to its bf16 one bit for bit); K4 from K3's saved
       tensors; K3 at P = 192 (3 heads); K7/K8 on a rank's 6 heads
       ([8, 512, 6, 64]) and K5/K6 on its rows under SP ([2048, 768]), with
-      rank 1's shard seeds, dropout 0 and 0.1; K1/K3/K4 each timed at P =
+      rank 1's shard seeds, dropout 0 and 0.1, then each timed at dropout
+      0.1 with CUDA events beside its plain version, its library call (SDPA
+      with the mask and dropout; ``F.dropout`` + add + ``F.layer_norm``;
+      each's backward) and its bound; K1/K3/K4 each timed at P =
       384 beside its plain version, a library call and its bound; the
       FFN's row-parallel layer (one bf16 GEMM writing fp32) at M = 4096
       and 49152 against the fp32 GEMM and its bound;
@@ -218,9 +223,24 @@ with random weights made from a fixed seed, in order:
       replicated parameters bitwise equal across the model ranks; the
       one-rank runs' ms a step, timed alike (each step between two
       synchronisations), beside them;
-   d. the multi-task model at model 2 (head of 60,000, fused, capacity
-      144, dropout 0.1, 2 steps): finite losses, the head bitwise equal
-      across the ranks.
+   d. the multi-task model at model 2, its head of 60,000 split over the
+      vocabulary (fused, capacity 144, dropout 0, 4 steps, global batch
+      8), within phase 13's gates of a one-rank run of the same config:
+      each rank holds at most 30,000 rows of the head and of its moments,
+      the head gathered whole is bitwise equal on both ranks, the
+      replicated parameters too; each rank's peak memory beside the
+      prediction, the head's collectives a step and their cost over gloo;
+23. from raw Arabic text to a production-shape training run: a seeded
+   corpus (10,000 lines of about 20 words from a generated lexicon of
+   80,000 Arabic words, with digits, dates and punctuation) through the
+   port's pipeline CLI in subprocesses — clean (4 shards, 4 workers),
+   diacritize (no CATT checkout: the identity fall-back, then phonemize
+   with ``g2p_backend: espeak`` through ``tests/espeak_stub/espeak_stub.c``,
+   built with the host compiler), tokenize (the 60,000-word cap) and
+   pack — then ``data.verify_store`` on the store and 4 steps of
+   bench.py's production shape from it, the head the tokenizer's
+   vocabulary: ms a step, real tokens/s, peak memory, finite losses, and
+   K5-K8 launched as the production path predicts.
 
 Any failure raises and exits non-zero. The line before the last is a
 JSON record of the kernels (its ``launches_by_path`` also counts them on
@@ -2219,7 +2239,7 @@ def phase_production_run(torch, workdir: str) -> tuple[dict, dict]:
     printed = Tee()
     counters = reset_counters()  # the multi-task path's run starts here
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(printed):
+    with contextlib.redirect_stdout(printed), timed_steps(torch, timed=False) as trainers:
         final = train({"config_path": config_path, "run_name": "production", "device": DEV},
                       dataset=corpus)
     wall = time.perf_counter() - t0
@@ -2244,14 +2264,11 @@ def phase_production_run(torch, workdir: str) -> tuple[dict, dict]:
 
     n = mp.num_hidden_layers
     micro = MT_STEPS * tp.grad_accum_steps
-    evals, rem = divmod(launches["flash_attention"] - n * micro, n)
-    expect = dict.fromkeys(launches, 0)
-    expect.update({"flash_attention": n * (micro + evals), "flash_attention_bwd": n * micro,
-                   "dropout_add_layernorm": 2 * n * (micro + evals),
-                   "dropout_add_layernorm_bwd": 2 * n * micro})
+    evals = validation_forwards(trainers[0])
+    expect = {**dict.fromkeys(launches, 0), **path_launches("pallas", n, micro, evals)}
     log(f"  launch counters over {MT_STEPS} steps ({micro} micro-batches) and {evals} "
         f"validation forwards: {launches}")
-    if rem or evals < 1 or launches != expect:
+    if evals < 1 or launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
     # the rows' occupancy from the packing line's row count: short samples
     # are never cropped, so the rows hold every sample's phonemes and
@@ -2966,10 +2983,16 @@ def sharded_config(path: str, out: str, data: int = 1, model: int = 1, zero1: bo
 
 
 @contextlib.contextmanager
-def timed_steps(torch):
+def timed_steps(torch, timed: bool = True):
     """Inside it, each ``training.train.Trainer`` made times its steps,
-    each between two synchronisations of the card (``step_s``); yields
-    the list the trainers are appended to."""
+    each between two synchronisations of the card (``step_s``), counts
+    the real tokens of each step's batch (``step_tokens``: the rows'
+    ``lengths`` summed, read after the step's clock stops) and the
+    vocabulary-parallel head's collectives a step
+    (``head_collectives``); yields the list the trainers are appended to.
+    With ``timed`` False the trainers are only collected, their steps left
+    as they are."""
+    from pl_bert_tpu_torch.ops import masked_ce
     from pl_bert_tpu_torch.training import train as train_mod
 
     trainers, base = [], train_mod.Trainer
@@ -2978,23 +3001,54 @@ def timed_steps(torch):
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
             trainers.append(self)
-            step, self.step_s = self.train_step, []
+            if not timed:
+                return
+            step, self.step_s, self.head_collectives = self.train_step, [], []
+            self.step_tokens = []
 
-            def timed(state, batch):
+            def timed_step(state, batch):
                 torch.cuda.synchronize()
+                before = masked_ce.VOCAB_COLLECTIVES.count
                 t0 = time.perf_counter()
                 out = step(state, batch)
                 torch.cuda.synchronize()
                 self.step_s.append(time.perf_counter() - t0)
+                self.head_collectives.append(masked_ce.VOCAB_COLLECTIVES.count - before)
+                self.step_tokens.append(int(batch["lengths"].sum()))
                 return out
 
-            self.train_step = timed
+            self.train_step = timed_step
 
     train_mod.Trainer = Timed
     try:
         yield trainers
     finally:
         train_mod.Trainer = base
+
+
+def validation_forwards(trainer) -> int:
+    """The eval forwards of a fresh run of ``trainer``'s config, from the
+    config and its validation split: each of its validation batches once
+    before the first step and again every ``val_interval`` (else
+    ``save_interval``) steps."""
+    tp = trainer.config.training_params
+    return len(trainer._val_cache) * (1 + tp.num_steps // (tp.val_interval or tp.save_interval))
+
+
+def path_launches(impl: str, n: int, micro: int, evals: int) -> dict:
+    """The launches a run of ``micro`` training forwards and backwards and
+    ``evals`` eval forwards makes through ``n`` layers: on the block path
+    (``auto``) K3/K4 a training layer, K1 an eval layer; on the flash path
+    (``pallas``) K7 a forward layer, K8 a backward layer; K5 twice a
+    forward layer and K6 twice a backward layer on both."""
+    if impl == "auto":
+        out = {"attention_block": n * evals, "attention_block_train": n * micro,
+               "attention_block_bwd": n * micro}
+    else:
+        out = {"flash_attention": n * (micro + evals), "flash_attention_bwd": n * micro}
+    out.update({"dropout_add_layernorm": 2 * n * (micro + evals),
+                "dropout_add_layernorm_bwd": 2 * n * micro})
+    return out
 
 
 def median_step_ms(step_s: list) -> float:
@@ -3027,14 +3081,63 @@ def sharded_rank(spec: dict) -> None:
         final = train({"config_path": spec["config"], "run_name": spec["run"], "device": DEV})
         launches = read_counters(counters)  # and ends here
     trainer = trainers[0]
-    digests = {n: hashlib.sha256(p.detach().float().cpu().numpy().tobytes()).hexdigest()
-               for n, p in trainer.model.named_parameters() if param_spec(n) is None}
+
+    def digest(t) -> str:
+        return hashlib.sha256(t.detach().float().cpu().numpy().tobytes()).hexdigest()
+
+    digests = {n: digest(p) for n, p in trainer.model.named_parameters()
+               if param_spec(n) is None}
+    result = {"final": final, "launches": launches, "evals": validation_forwards(trainer),
+              "local_heads": trainer.model.cfg.local_heads, "step_s": trainer.step_s,
+              "peak": torch.cuda.max_memory_allocated(), "digests": digests,
+              "head_collectives": trainer.head_collectives}
+    vocab = getattr(trainer.model, "vocab_slice", lambda: None)()
+    if vocab is not None:  # 22 d: this rank's rows of the head, and the head whole
+        result.update(vocab_parallel_head(torch, trainer, vocab, digest))
     with open(spec["result"], "w", encoding="utf-8") as f:
-        json.dump({"final": final, "launches": launches,
-                   "local_heads": trainer.model.cfg.local_heads,
-                   "step_s": trainer.step_s,
-                   "peak": torch.cuda.max_memory_allocated(), "digests": digests}, f)
+        json.dump(result, f)
     dist.destroy_process_group()
+
+
+def vocab_parallel_head(torch, trainer, vocab, digest) -> dict:
+    """22 d, on each rank: the rows of the head (and of its moments) this
+    rank holds, a digest of the head gathered whole, and the head's
+    collectives of one gathered micro-batch (capacity 144, chunks of 48
+    positions) timed over the model group: per chunk the MAX all-reduce
+    of [rows] and the SUM of [2, rows] fp32, then the fp32 dh all-reduce
+    once, each the median of 5 between two synchronisations."""
+    from pl_bert_tpu_torch.ops.masked_ce import chunk_size_for
+    from pl_bert_tpu_torch.parallel import collectives as col
+
+    head = dict(trainer.model.named_parameters())
+    weight, bias = head["token_predictor.weight"], head["token_predictor.bias"]
+    tp = trainer.config.training_params
+    B, cap, H = tp.batch_size, tp.lm_head_capacity, weight.shape[1]
+    c = chunk_size_for(cap, 64)
+
+    def timed(fn) -> float:
+        out = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return sorted(out[1:])[2]
+
+    rows = torch.zeros(B * c, device=DEV)
+    pair = torch.zeros(2, B * c, device=DEV)
+    dh = torch.zeros(B, cap, H, device=DEV)
+    ms = {"max": timed(lambda: col.all_reduce_(rows, vocab.group, col.dist.ReduceOp.MAX)),
+          "sum": timed(lambda: col.all_reduce_(pair, vocab.group)),
+          "dh": timed(lambda: col.all_reduce_(dh, vocab.group))}
+    return {"head_rows": weight.shape[0], "head_start": vocab.start,
+            "moment_rows": [t.shape[0] for t in trainer.state.opt_state.moments[
+                "token_predictor.weight"]],
+            "head_whole": {n: digest(col.all_gather_uneven(p.detach(), vocab.group, 0))
+                           for n, p in (("token_predictor.weight", weight),
+                                        ("token_predictor.bias", bias))},
+            "head_collective_ms": ms, "head_chunks": cap // c}
 
 
 def run_ranks(config: str, run: str, world: int, workdir: str) -> list[dict]:
@@ -3099,7 +3202,8 @@ def np_isfinite(v: float) -> bool:
     return v == v and abs(v) != float("inf")
 
 
-def phase_sharded_kernels(torch, results: dict, smi: str) -> dict:
+def phase_sharded_kernels(torch, results: dict, smi: str, per_draw: dict,
+                          clock_mhz: float) -> dict:
     """22 a. K1/K3 with the fp32 output of a tensor-parallel shard at
     [8, 512, 768] with 6 heads of 64 (P = 384), bf16, at dropout 0 and 0.1,
     against their plain versions; K4 from those saved tensors; K3 at P =
@@ -3177,7 +3281,7 @@ def phase_sharded_kernels(torch, results: dict, smi: str) -> dict:
                      TOL_GRAD["bfloat16"])
             del saved, ref_saved, keep, dx, dqkv, rdx, rdqkv
 
-    hold_sharded_rows(torch, results, rng, bias_row, smi)
+    shard_rows = hold_sharded_rows(torch, results, rng, bias_row, smi, per_draw, clock_mhz)
     rowpar = time_row_parallel(torch, rng, smi)
 
     # timed at P = 384, dropout 0.1, beside the plain versions and one
@@ -3242,17 +3346,26 @@ def phase_sharded_kernels(torch, results: dict, smi: str) -> dict:
             f"{library[name]:.4f} ms, bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) "
             f"({smi})")
     torch.cuda.empty_cache()
-    return {"times": times, "library": library, "bounds": bounds, "row_parallel": rowpar}
+    return {"times": times, "library": library, "bounds": bounds, "row_parallel": rowpar,
+            "shard_rows": shard_rows}
 
 
-def hold_sharded_rows(torch, results: dict, rng, bias_row, smi: str) -> None:
+def hold_sharded_rows(torch, results: dict, rng, bias_row, smi: str, per_draw: dict,
+                      clock_mhz: float) -> dict:
     """22 a. The flash path's kernels at a model rank's shapes: K7/K8 on
     its 6 heads ([8, 512, 6, 64], q/k/v views of one [B, L, 3·384]
     projection, the model's layout), and K5/K6 (through their autograd
     Function) on its rows under sequence parallelism ([B·L/2, 768]), bf16,
     at dropout 0 and 0.1 with model rank 1's shard seeds of a 1×2 mesh,
-    against their plain versions at phases 11 and 14's bf16 gates."""
+    against their plain versions at phases 11 and 14's bf16 gates; then
+    each timed at dropout 0.1 with CUDA events over back-to-back calls
+    beside its plain version, its library call (SDPA with the mask and
+    dropout, and its backward; ``F.dropout`` + add + ``F.layer_norm``,
+    and its backward) and its bound (``flash_cost``, ``ln_bound``)."""
     import numpy as np
+    import torch.nn.functional as F
+
+    from pl_bert_tpu_torch.ops.attention import NEG
 
     from pl_bert_tpu_torch.ops import attention_block as ab
     from pl_bert_tpu_torch.ops import flash_attention as fa
@@ -3298,6 +3411,58 @@ def hold_sharded_rows(torch, results: dict, rng, bias_row, smi: str) -> None:
             hold(results, "dropout_add_layernorm_bwd", f"K6 {name} [{N}, {E}] {tag}", a, r,
                  TOL["bfloat16"] if a.dtype == dt else TOL_GRAD["bfloat16"])
 
+    rate, iters = 0.1, 20
+    seed = tp.shard_seed(977, offset)
+    keep = ab.dropout_mask(seed, rate, B, H, L, DEV)
+    times = {
+        "flash_attention": a_b(
+            torch, lambda: fa.flash_attention_plain(q, k, v, bias_row, None, rate, seed,
+                                                    keep=keep),
+            lambda: fa.flash_attention_fwd(q, k, v, bias_row, None, rate, seed), iters=iters),
+        "flash_attention_bwd": a_b(
+            torch, lambda: fa.flash_attention_bwd_plain(dout, q, k, v, bias_row, None, rate,
+                                                        seed, keep=keep),
+            lambda: fa.flash_attention_bwd(dout, q, k, v, bias_row, None, rate, seed),
+            iters=iters)}
+    del keep
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    attn_bias = bias_row.clamp(min=NEG).to(dt)[:, None, None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qs, ks, vs, attn_mask=attn_bias, dropout_p=rate)
+    library = {"flash_attention": time_ms(torch, sdpa, iters)}
+    sdpa_out = sdpa()
+    library["flash_attention_bwd"] = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa_out, [qs, ks, vs], dout.transpose(1, 2), retain_graph=True), iters)
+    del sdpa_out
+    bounds = {name: bound_ms(*flash_cost(B, L, H, D, 2, back))
+              for name, back in (("flash_attention", False), ("flash_attention_bwd", True))}
+    seed = tp.shard_seed(99, offset)
+    times["dropout_add_layernorm"] = a_b(
+        torch, lambda: fused_ln.dropout_add_layernorm_plain(x, res, gamma, beta, seed, rate),
+        lambda: fused_ln.dropout_add_layernorm(x, res, gamma, beta, seed, rate), iters=iters)
+    times["dropout_add_layernorm_bwd"] = a_b(
+        torch, lambda: fused_ln.dropout_add_layernorm_bwd_plain(dy, x, res, gamma, seed, rate),
+        lambda: fused_ln.dropout_add_layernorm_bwd(dy, x, res, gamma, seed, rate), iters=iters)
+    g16, b16 = gamma.to(dt).requires_grad_(), beta.to(dt).requires_grad_()
+    xg, rg = x.detach().requires_grad_(), res.detach().requires_grad_()
+    stock_ln = lambda: F.layer_norm(F.dropout(xg, rate) + rg, (E,), g16, b16, 1e-12)  # noqa: E731
+    library["dropout_add_layernorm"] = time_ms(torch, stock_ln, iters)
+    ln_out = stock_ln()
+    library["dropout_add_layernorm_bwd"] = time_ms(torch, lambda: torch.autograd.grad(
+        ln_out, [xg, rg, g16, b16], dy, retain_graph=True), iters)
+    del ln_out
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bounds["dropout_add_layernorm"] = ln_bound(N, E, 2, 3, 10.0, N * E, per_draw["ln_fwd"],
+                                               sms, clock_mhz)[:2]
+    bounds["dropout_add_layernorm_bwd"] = ln_bound(N, E, 2, 5, 20.0, N * E,
+                                                   per_draw["ln_bwd"], sms, clock_mhz)[:2]
+    for name, (kms, pms) in times.items():
+        shape = f"[{N}, {E}]" if "layernorm" in name else f"[{B}, {L}, {H}, {D}]"
+        log(f"  {name} {shape} bf16 dropout {rate}: kernel {kms:.4f} ms, plain {pms:.4f} ms, "
+            f"library {library[name]:.4f} ms, bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]}) (CUDA events, {iters} calls) ({smi})")
+    return {"times": times, "library": library, "bounds": bounds}
+
 
 def time_row_parallel(torch, rng, smi: str) -> dict:
     """22 a. The FFN's row-parallel layer on a model rank (``ffn_output``:
@@ -3342,16 +3507,17 @@ def time_row_parallel(torch, rng, smi: str) -> dict:
     return out
 
 
-def phase_sharded(torch, smi: str, results: dict) -> dict:
+def phase_sharded(torch, smi: str, results: dict, per_draw: dict, clock_mhz: float) -> dict:
     """22. the sharded step: a. its kernels at the shard's shapes; b. a NCCL
     world of one; c. two ranks over gloo on the one card, five meshes; d.
-    the multi-task model at model 2."""
+    the multi-task model at model 2, its head split over the vocabulary:
+    at dropout 0 against one rank, and at dropout 0.1 across its ranks."""
     import torch.distributed as dist
 
     from pl_bert_tpu_torch.training.train import train
 
     t_phase = time.perf_counter()
-    kernels = phase_sharded_kernels(torch, results, smi)
+    kernels = phase_sharded_kernels(torch, results, smi, per_draw, clock_mhz)
     out = {"kernels": kernels}
     with tempfile.TemporaryDirectory() as workdir:
         runs = os.path.join(workdir, "runs")
@@ -3418,23 +3584,9 @@ def phase_sharded(torch, smi: str, results: dict) -> dict:
             by_run[label] = {"ranks": ranks, "steps": got, "bitwise": bitwise}
             heads = 12 // model
             for rank, r in enumerate(ranks):
-                c, vals = r["launches"], 0
-                if impl == "auto":
-                    vals, rem = divmod(c["attention_block"], n)
-                    expect = dict.fromkeys(c, 0)
-                    expect.update({"attention_block": n * vals,
-                                   "attention_block_train": n * steps,
-                                   "attention_block_bwd": n * steps,
-                                   "dropout_add_layernorm": 2 * n * (steps + vals),
-                                   "dropout_add_layernorm_bwd": 2 * n * steps})
-                else:
-                    vals, rem = divmod(c["flash_attention"] - n * steps, n)
-                    expect = dict.fromkeys(c, 0)
-                    expect.update({"flash_attention": n * (steps + vals),
-                                   "flash_attention_bwd": n * steps,
-                                   "dropout_add_layernorm": 2 * n * (steps + vals),
-                                   "dropout_add_layernorm_bwd": 2 * n * steps})
-                if rem or vals < 1 or c != expect or r["local_heads"] != heads:
+                c, vals = r["launches"], r["evals"]
+                expect = {**dict.fromkeys(c, 0), **path_launches(impl, n, steps, vals)}
+                if vals < 1 or c != expect or r["local_heads"] != heads:
                     raise AssertionError(f"{label} rank {rank}: launches {c} != {expect} or "
                                          f"heads {r['local_heads']} != {heads}")
                 log(f"  {label} rank {rank}: {r['local_heads']} local heads; launches over "
@@ -3452,26 +3604,284 @@ def phase_sharded(torch, smi: str, results: dict) -> dict:
                              "data 2 with zero1 against data 2")
         out["runs"], out["zero1_bitwise"] = by_run, zero1
 
-        log("phase 22 d: the multi-task model at model 2, data 1 (head of 60,000, fused, "
-            "capacity 144, dropout 0.1, 2 steps, global batch 8)")
-        config = sharded_config(os.path.join(workdir, "mt.yml"), runs, model=2, dropout=0.1,
-                                steps=2, multitask=True)
+        log("phase 22 d: the multi-task model at model 2, data 1, its head of 60,000 split "
+            "over the vocabulary (fused, capacity 144, dropout 0, 4 steps, global batch 8), "
+            "against one rank on the same weights and batches")
+        V = 60_000
+        mt_ref, _ = one_rank(sharded_config(os.path.join(workdir, "mt_ref.yml"), runs,
+                                            multitask=True), "mt_ref")
+        config = sharded_config(os.path.join(workdir, "mt.yml"), runs, model=2, multitask=True)
         ranks = run_ranks(config, "mt", 2, workdir)
         got = metrics_steps(os.path.join(runs, "mt"))
-        head = [k for k in ranks[0]["digests"] if k.startswith("token_predictor.")]
-        same = all(ranks[0]["digests"][k] == ranks[1]["digests"][k] for k in head)
-        log(f"  losses {[(round(r['phoneme_loss'], 4), round(r['token_loss'], 4)) for r in got]};"
-            f" the head's {head} bitwise equal across the ranks: {same}; peak "
-            f"{ranks[0]['peak'] / 2**30:.2f} GiB ({smi})")
-        if len(got) != 2 or not all(np_isfinite(r[k]) for r in got
-                                    for k in ("phoneme_loss", "token_loss", "grad_norm")):
+        compare_runs(got, mt_ref, "multi-task model 2 against one rank")
+        if not all(np_isfinite(r[k]) and r["token_loss"] > 0 for r in got
+                   for k in ("phoneme_loss", "token_loss", "grad_norm")):
             raise AssertionError(f"multi-task model 2: {got}")
-        if len(head) != 2 or not same:
-            raise AssertionError("the grapheme head differs across the model ranks")
+        half = -(-V // 2)
+        whole = ranks[0]["head_whole"] == ranks[1]["head_whole"]
+        same = ranks[0]["digests"] == ranks[1]["digests"]
+        log(f"  the head gathered whole bitwise equal on both ranks after step 4: {whole}; "
+            f"replicated parameters bitwise equal across the model ranks: {same} "
+            f"({len(ranks[0]['digests'])} tensors, the head not among them)")
+        if not whole or not same or any(k.startswith("token_predictor.")
+                                        for k in ranks[0]["digests"]):
+            raise AssertionError("multi-task model 2: the ranks' parameters differ")
+        for rank, r in enumerate(ranks):
+            per_mb = r["head_collectives"]
+            ms = r["head_collective_ms"]
+            cost = r["head_chunks"] * (ms["max"] + ms["sum"]) + ms["dh"]
+            log(f"  rank {rank}: head rows [{r['head_start']}, {r['head_start'] + r['head_rows']})"
+                f", moments {r['moment_rows']} rows (at most {half}); the head's collectives "
+                f"a step {per_mb} (one micro-batch a step); an isolated estimate over gloo, "
+                f"each collective timed alone on zero tensors outside the step: a MAX of [rows] "
+                f"{ms['max']:.3f} ms, a SUM of [2, rows] {ms['sum']:.3f} ms, the dh all-reduce "
+                f"{ms['dh']:.3f} ms: {cost:.2f} ms a micro-batch of {r['head_chunks']} chunks; "
+                f"{median_step_ms(r['step_s']):.1f} ms a step; peak {r['peak'] / 2**30:.2f} GiB "
+                f"({r['peak']} bytes) against the predicted 1.5 GiB and 1.89 GiB with the "
+                f"head replicated ({smi})")
+            if r["head_rows"] > half or any(n > half for n in r["moment_rows"]):
+                raise AssertionError(f"rank {rank} holds {r['head_rows']} rows of the head")
+        out["multitask"] = {"peak": [r["peak"] for r in ranks],
+                            "collectives": ranks[0]["head_collectives"],
+                            "collective_ms": ranks[0]["head_collective_ms"]}
+
+        log("phase 22 d: the same two ranks at dropout 0.1, 2 steps (each rank's shard seeds, "
+            "the embedding dropout drawn at the global batch shape, K3 and K5 with each rank's "
+            "seed offsets under the Trainer): finite losses, the replicated parameters and the "
+            "head gathered whole bitwise equal across the ranks")
+        steps = 2
+        config = sharded_config(os.path.join(workdir, "mt_dropout.yml"), runs, model=2,
+                                dropout=0.1, steps=steps, multitask=True)
+        ranks = run_ranks(config, "mt_dropout", 2, workdir)
+        got = metrics_steps(os.path.join(runs, "mt_dropout"))
+        if len(got) != steps or not all(np_isfinite(r[k]) and r["token_loss"] > 0 for r in got
+                                        for k in ("phoneme_loss", "token_loss", "grad_norm")):
+            raise AssertionError(f"multi-task model 2 at dropout 0.1: {got}")
+        whole = ranks[0]["head_whole"] == ranks[1]["head_whole"]
+        same = ranks[0]["digests"] == ranks[1]["digests"]
+        for rank, r in enumerate(ranks):
+            c = r["launches"]
+            expect = {**dict.fromkeys(c, 0), **path_launches("auto", n, steps, r["evals"])}
+            log(f"  rank {rank}: launches over {steps} steps and {r['evals']} validation "
+                f"forwards {c}")
+            if r["evals"] < 1 or c != expect:
+                raise AssertionError(f"dropout 0.1 rank {rank}: launches {c} != {expect}")
+        log(f"  losses {[(round(r['phoneme_loss'], 4), round(r['token_loss'], 4)) for r in got]};"
+            f" the head gathered whole bitwise equal on both ranks: {whole}; replicated "
+            f"parameters bitwise equal across the model ranks: {same} "
+            f"({len(ranks[0]['digests'])} tensors)")
+        if not whole or not same:
+            raise AssertionError("multi-task model 2 at dropout 0.1: the ranks' parameters "
+                                 "differ")
+        out["multitask_dropout"] = {"steps": got, "launches": ranks[0]["launches"]}
     out["launches"] = by_run["model 2, SP"]["ranks"][0]["launches"]
     wall = time.perf_counter() - t_phase
     log(f"phase 22 took {wall:.1f} s")
     out["wall_s"] = wall
+    return out
+
+
+# phase 23's corpus: a generated lexicon of Arabic-letter words drawn
+# uniformly (about 200,000 draws over 80,000 words leave about 73,000
+# distinct, past the tokenizer's 60,000 cap), with digits, dates and
+# punctuation mixed in so arabic_numbers and the punctuation split run
+TEXT_LEXICON, TEXT_LINES, TEXT_WORDS = 80_000, 10_000, 20
+ARABIC_LETTERS = "ابتثجحخدذرزسشصضطظعغفقكلمنهوي"
+# the pipeline's config for phase 23's text stages and its pack
+TEXT_CONFIG = """\
+preprocess_params:
+  num_shards: 4
+  max_workers: 4
+  max_try_count: 1
+  timeout: 600
+  preprocess_dir: {prep}
+  cleaned_output_dir: cleaned
+  g2p_backend: espeak
+dataset_params:
+  max_seq_length: 512
+  ondevice_masking: true
+  sequence_packing: true
+"""
+
+
+def arabic_corpus(path: str, seed: int) -> int:
+    """Write phase 23's corpus (one article a line); returns its words."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lexicon = set()
+    while len(lexicon) < TEXT_LEXICON:
+        n = int(rng.integers(2, 8))
+        lexicon.add("".join(ARABIC_LETTERS[i] for i in rng.integers(0, 28, n)))
+    lexicon = sorted(lexicon)
+    marks, words = "،؛؟!:", 0
+    with open(path, "w", encoding="utf-8") as f:
+        for _ in range(TEXT_LINES):
+            line = []
+            for j in range(int(rng.integers(TEXT_WORDS - 4, TEXT_WORDS + 5))):
+                r = rng.random()
+                if r < 0.05:
+                    line.append(str(int(rng.integers(0, 100_000))))
+                elif r < 0.07:
+                    line.append(f"{rng.integers(1, 29)}/{rng.integers(1, 13)}/"
+                                f"{rng.integers(1900, 2030)}")
+                else:
+                    word = lexicon[int(rng.integers(len(lexicon)))]
+                    if 0 < j and rng.random() < 0.04:
+                        word += marks[int(rng.integers(len(marks)))]
+                    line.append(word)
+            words += len(line)
+            f.write(" ".join(line) + ".\n")
+    return words
+
+
+def stub_espeak() -> str:
+    """``tests/espeak_stub/espeak_stub.c`` built as C with the host
+    compiler ``runtime/build.py::build_host`` uses (``-x c``), into the
+    git-ignored build directory; a failed build raises."""
+    from pl_bert_tpu_torch.runtime.build import BUILD_DIR, host_compiler
+
+    src = os.path.join(HERE, "tests", "espeak_stub", "espeak_stub.c")
+    out = BUILD_DIR / "libespeak-stub.so"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([host_compiler(), "-x", "c", "-O2", "-shared", "-fPIC", src, "-o",
+                    str(out)], check=True, capture_output=True, text=True, timeout=300)
+    return str(out)
+
+
+def count_lines(path: str) -> int:
+    with open(path, encoding="utf-8") as f:
+        return sum(1 for line in f if line.strip())
+
+
+def phase_text_to_training(torch, smi: str) -> dict:
+    """23. raw Arabic text → the pipeline's stages in subprocesses (the
+    shard engine forks its workers, so none of them touches CUDA) →
+    ``verify_store`` → bench.py's production shape trained from the store
+    through ``training.train.train()``."""
+    import numpy as np
+
+    from pl_bert_tpu_torch.training.train import train
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        prep = os.path.join(workdir, "prep")
+        corpus = os.path.join(workdir, "corpus.txt")
+        words = arabic_corpus(corpus, SEED + 23)
+        config = os.path.join(workdir, "text.yml")
+        with open(config, "w", encoding="utf-8") as f:
+            f.write(TEXT_CONFIG.format(prep=prep))
+        log(f"phase 23 a: a corpus of {TEXT_LINES} lines, {words} words drawn from a lexicon of "
+            f"{TEXT_LEXICON} generated Arabic words, with digits, dates and punctuation")
+        t0 = time.perf_counter()
+        lib = stub_espeak()
+        log(f"phase 23 b: the espeak-ng ABI stub built in {time.perf_counter() - t0:.1f} s: "
+            f"{lib} (PLBERT_ESPEAK_LIB)")
+        # the CATT root inside this phase's own directory, where no checkout
+        # is: the diacritize stage's fall-back does not depend on what lies
+        # beside the repository
+        catt = os.path.join(workdir, "catt")
+        env = {"PLBERT_ESPEAK_LIB": lib, "PLBERT_CATT_DIR": catt, "CUDA_VISIBLE_DEVICES": ""}
+        cleaned = os.path.join(prep, "cleaned")
+        phonemized = cleaned + ".diacritized.phonemized"
+        tokenized = phonemized + ".tokenized"
+        tok_dir = os.path.join(prep, "word_tokenizer")
+        stages = [
+            ("clean", ["--local_dataset_path", corpus], cleaned),
+            ("diacritize", ["--dataset_path", cleaned], phonemized),
+            ("tokenize", ["--dataset_path", phonemized, "--tokenizer_dir", tok_dir], tokenized),
+            ("pack", ["--dataset_path", tokenized], None),
+        ]
+        log("phase 23 c: python -m pl_bert_tpu_torch.preprocess.pipeline in subprocesses")
+        printed = {}
+        for stage, args, result in stages:
+            t0 = time.perf_counter()
+            done = run_module(["pl_bert_tpu_torch.preprocess.pipeline", "--config_path", config,
+                               "--stage", stage, *args], env=env, timeout=600)
+            seconds = time.perf_counter() - t0
+            if done.returncode:
+                raise AssertionError(f"--stage {stage} exited {done.returncode}:\n"
+                                     f"{done.stdout[-2000:]}\n{done.stderr[-3000:]}")
+            printed[stage] = done.stdout
+            if result is not None:
+                n = count_lines(os.path.join(result, "records.jsonl"))
+                log(f"  --stage {stage}: {seconds:.1f} s, {n} records -> {result}")
+            else:
+                line = next(x for x in done.stdout.splitlines() if x.startswith("Packed store"))
+                log(f"  --stage {stage}: {seconds:.1f} s, {line}")
+            out[stage + "_s"] = seconds
+        if (f"CATT checkout not found at {catt}" not in printed["diacritize"]
+                or "falling back to identity diacritizer" not in printed["diacritize"]):
+            raise AssertionError("the diacritize stage did not report its fall-back from "
+                                 f"{catt}:\n{printed['diacritize'][-2000:]}")
+        with open(os.path.join(tok_dir, "tokenizer.json"), encoding="utf-8") as f:
+            vocab = json.load(f)["vocab_size"]
+        with open(os.path.join(tokenized, "records.jsonl"), encoding="utf-8") as f:
+            rows = [json.loads(line) for line in f]
+        mismatched = sum(r["token_alignment"] == "mismatch" for r in rows)
+        stubbed = sum(p.startswith("ˈ") for r in rows[:200] for p in r["phonemes"])
+        log(f"  the tokenizer: {vocab} words (the cap); {mismatched} of {len(rows)} records "
+            f"misaligned; {stubbed} phoneme words of the first 200 records carry the stub's "
+            "stress mark")
+        if vocab != 60_000 or stubbed == 0:
+            raise AssertionError(f"tokenizer {vocab} words, stub marks {stubbed}")
+        store = tokenized + ".packed"
+
+        log("phase 23 d: python -m pl_bert_tpu_torch.data.verify_store on the store")
+        verified = run_module(["pl_bert_tpu_torch.data.verify_store", store])
+        if verified.returncode or not verified.stdout.startswith("OK (full scan)"):
+            raise AssertionError(f"verify_store: rc {verified.returncode}\n{verified.stdout}"
+                                 f"{verified.stderr[-2000:]}")
+        log(f"  {verified.stdout.strip()}")
+        with open(os.path.join(store, "packed_meta.json"), encoding="utf-8") as f:
+            meta = json.load(f)
+
+        steps = 4
+        run_config = os.path.join(workdir, "production.yml")
+        with open(run_config, "w", encoding="utf-8") as f:
+            f.write(MT_CONFIG.format(out=os.path.join(workdir, "runs"), steps=steps, save=steps,
+                                     dataset=store).replace("num_token_vocab: 60000",
+                                                            f"num_token_vocab: {vocab}"))
+        log(f"phase 23 e: bench.py's production shape from the store ({meta['num_rows']} rows, "
+            f"{meta['total_tokens']} tokens), a head of {vocab}, {steps} steps")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        counters = reset_counters()  # this run starts here
+        with contextlib.redirect_stdout(Tee()), timed_steps(torch) as trainers:
+            final = train({"config_path": run_config, "run_name": "text", "device": DEV})
+        launches = read_counters(counters)  # and ends here
+        peak = torch.cuda.max_memory_allocated()
+        records = step_records(os.path.join(workdir, "runs", "text"))
+        keys = ("loss", "phoneme_loss", "token_loss")
+        if final != steps or [r["step"] for r in records] != list(range(1, steps + 1)) or not all(
+                np.isfinite(r[k]) and r["token_loss"] > 0 for r in records for k in keys):
+            raise AssertionError(f"phase 23 run: step {final}, {records}")
+        trainer = trainers[0]
+        n, micro = 12, 2 * steps
+        evals = validation_forwards(trainer)
+        expect = {**dict.fromkeys(launches, 0), **path_launches("pallas", n, micro, evals)}
+        log(f"  launches over {steps} steps ({micro} micro-batches) and {evals} validation "
+            f"forwards ({len(trainer._val_cache)} validation batches, before step 1 and after "
+            f"step {steps}): {launches}")
+        if evals < 1 or launches != expect:
+            raise AssertionError(f"launch counts {launches} != {expect}")
+        step_ms = median_step_ms(trainer.step_s)
+        # the real tokens of the batches the run trained on, over the steps
+        # past the first, by the steps' own clock
+        tokens_per_s = sum(trainer.step_tokens[1:]) / sum(trainer.step_s[1:])
+        occupancy = sum(trainer.step_tokens) / (steps * 2 * 96 * 512)
+        log(f"  {step_ms:.1f} ms a step (median of steps 2-{steps}, each between two "
+            f"synchronisations), {tokens_per_s:.0f} real tokens/s over steps 2-{steps} "
+            f"({trainer.step_tokens} real tokens a step, {occupancy:.1%} of the rows), "
+            f"peak {peak / 2**30:.2f} GiB ({peak} bytes); losses "
+            f"{[(round(r['phoneme_loss'], 4), round(r['token_loss'], 4)) for r in records]} "
+            f"({smi})")
+        out.update(step_ms=step_ms, tokens_per_s=tokens_per_s, occupancy=occupancy, peak=peak,
+                   launches=launches, vocab=vocab, rows=meta["num_rows"],
+                   step_tokens=trainer.step_tokens)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 23 took {out['wall_s']:.1f} s")
     return out
 
 
@@ -3550,7 +3960,9 @@ def main() -> int:
         deploy = phase_deploy(torch, sd, mt_dir, smi)  # on 18 c's step_6.pth
     remat = phase_remat(torch, smi)
     torch.cuda.empty_cache()
-    sharded = phase_sharded(torch, smi, results)
+    sharded = phase_sharded(torch, smi, results, per_draw, clock_mhz)
+    torch.cuda.empty_cache()
+    text = phase_text_to_training(torch, smi)
     imported = sorted({"datasets", "transformers", "safetensors"} & set(sys.modules))
     if imported:
         raise AssertionError(f"the smoke's path imported {imported}")
@@ -3604,6 +4016,11 @@ def main() -> int:
         f"a step; one rank at B=8 {sharded['one_rank_ms']['auto']:.1f} (block) and "
         f"{sharded['one_rank_ms']['pallas']:.1f} (flash) ms a step; zero1 bitwise data 2: "
         f"{sharded['zero1_bitwise']} ({smi})")
+    log(f"raw Arabic text to the production shape (phase 23): clean {text['clean_s']:.1f} s, "
+        f"diacritize and phonemize {text['diacritize_s']:.1f} s, tokenize "
+        f"{text['tokenize_s']:.1f} s, pack {text['pack_s']:.1f} s; {text['step_ms']:.1f} ms a "
+        f"step, {text['tokens_per_s']:.0f} real tokens/s, peak {text['peak'] / 2**30:.2f} GiB "
+        f"({smi})")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

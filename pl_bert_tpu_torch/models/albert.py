@@ -774,12 +774,32 @@ class PhonemeOnlyModel(nn.Module):
 class MultiTaskModel(PhonemeOnlyModel):
     """Encoder + phoneme head + grapheme (token) head, the counterpart of
     ``pl_bert_tpu/models/albert.py:581-606``; its state dict adds
-    ``token_predictor.weight/bias`` to the phoneme-only model's."""
+    ``token_predictor.weight/bias`` to the phoneme-only model's.
+
+    Under a mesh with model ranks the head is vocabulary-parallel (JAX's
+    ``P(None, model)``): built whole like every parameter,
+    ``parallel.mesh.shard_model`` keeps this rank's rows
+    [:meth:`vocab_slice`), ⌈V/m⌉ or fewer, and the losses
+    (``ops/masked_ce.py``) take the slice's :class:`VocabSlice`. A V the
+    model axis does not divide leaves the last ranks fewer rows."""
 
     def __init__(self, cfg: AlbertConfig, num_phonemes: int = 188,
                  num_tokens: int = 60_000) -> None:
         super().__init__(cfg, num_phonemes)
+        self.num_tokens = num_tokens
         self.token_predictor = nn.Linear(cfg.hidden_size, num_tokens)
+
+    def vocab_slice(self):
+        """This rank's :class:`ops.masked_ce.VocabSlice` of the head, or
+        None where it holds the whole head."""
+        mesh = self.cfg.mesh
+        if mesh is None or mesh.model == 1:
+            return None
+        from pl_bert_tpu_torch.ops.masked_ce import VocabSlice
+        from pl_bert_tpu_torch.parallel.mesh import split_bounds
+
+        start, _ = split_bounds(self.num_tokens, mesh.model, mesh.model_index)
+        return VocabSlice(mesh.model_group, start)
 
     def forward(self, input_ids, attention_mask=None, segment_ids=None,
                 position_ids=None, deterministic: bool = True, dropout_seeds=None,
@@ -797,7 +817,11 @@ class MultiTaskModel(PhonemeOnlyModel):
         phoneme = _head(self.phoneme_predictor, hidden, self.cfg.dtype)
         if not project_tokens:
             return phoneme, hidden
-        return phoneme, _head(self.token_predictor, hidden, self.cfg.dtype)
+        vocab = self.vocab_slice()
+        if vocab is None:
+            return phoneme, _head(self.token_predictor, hidden, self.cfg.dtype)
+        part = _head(self.token_predictor, col.copy_to_group(hidden, vocab.group), self.cfg.dtype)
+        return phoneme, col.gather_vocab(part, vocab.group)
 
 
 def build_model(params, mixed_precision: str = "bf16", remat: bool = False,

@@ -4,7 +4,8 @@ JAX gets a collective's backward from ``shard_map``'s transpose; here
 each is a ``torch.autograd.Function`` with Megatron's pair:
 
 - :func:`copy_to_model` — identity forward, all-reduce backward (the
-  entry of a tensor-parallel region);
+  entry of a tensor-parallel region; :func:`copy_to_group` takes the
+  group itself, as the vocabulary-parallel head does);
 - :func:`reduce_from_model` — all-reduce forward, identity backward (its
   exit: the row-parallel projection's partial sums);
 - :func:`scatter_seq` — reduce-scatter over L forward, all-gather
@@ -61,6 +62,32 @@ def all_gather(tensor: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     parts = [torch.empty_like(tensor) for _ in range(n)]
     dist.all_gather(parts, tensor, group=group)
     return torch.cat(parts, dim)
+
+
+def _sizes(tensor: torch.Tensor, group, dim: int) -> list[int]:
+    """Every rank's size of ``tensor`` along ``dim``, in rank order."""
+    size = torch.tensor([tensor.shape[dim]], dtype=torch.int64, device=tensor.device)
+    return all_gather(size, group).tolist()
+
+
+def all_gather_uneven(tensor: torch.Tensor, group, dim: int = 0, sizes=None) -> torch.Tensor:
+    """:func:`all_gather` of pieces whose sizes along ``dim`` may differ
+    (a vocabulary the model axis does not divide): each piece is padded
+    to the largest for the collective and cut back after it. ``sizes``:
+    the ranks' sizes, where the caller has them."""
+    n = group_size(group)
+    if n == 1:
+        return tensor
+    sizes = _sizes(tensor, group, dim) if sizes is None else sizes
+    top = max(sizes)
+    if top == min(sizes):
+        return all_gather(tensor, group, dim)
+    shape = list(tensor.shape)
+    shape[dim] = top
+    padded = tensor.new_zeros(shape)
+    padded.narrow(dim, 0, tensor.shape[dim]).copy_(tensor)
+    parts = all_gather(padded, group, dim).split(top, dim)
+    return torch.cat([p.narrow(dim, 0, k) for p, k in zip(parts, sizes)], dim)
 
 
 def reduce_scatter(tensor: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -151,14 +178,32 @@ class _Unsplit(torch.autograd.Function):
         return _own(g, ctx.group, ctx.dim), None, None
 
 
+class _GatherVocab(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        sizes = _sizes(x, group, -1)
+        ctx.start, ctx.size = sum(sizes[:group_rank(group)]), x.shape[-1]
+        return all_gather_uneven(x, group, x.dim() - 1, sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, ctx.start, ctx.size).contiguous(), None
+
+
 def _apply(fn, x, mesh, *args):
     if mesh is None or mesh.model == 1:
         return x
     return fn.apply(x, mesh.model_group, *args)
 
 
+def copy_to_group(x, group):
+    """Identity forward, the gradient all-reduced over ``group`` (None:
+    the identity)."""
+    return x if group_size(group) == 1 else _CopyToModel.apply(x, group)
+
+
 def copy_to_model(x, mesh):
-    return _apply(_CopyToModel, x, mesh)
+    return copy_to_group(x, None if mesh is None else mesh.model_group)
 
 
 def reduce_from_model(x, mesh):
@@ -171,6 +216,13 @@ def scatter_seq(x, mesh):
 
 def gather_seq(x, mesh):
     return _apply(_GatherSeq, x, mesh)
+
+
+def gather_vocab(x, group):
+    """The ranks' slices of ``x`` along its last dimension (a
+    vocabulary-parallel head's logits), whole, uneven slices included;
+    the gradient is this rank's slice of the (equal) gradients."""
+    return x if group_size(group) == 1 else _GatherVocab.apply(x, group)
 
 
 def split(x, mesh, dim: int = 1):

@@ -19,8 +19,11 @@ of the mesh and holds its own shard:
   rank builds the same global batch and keeps its data slice.
 
 With no process group initialised, :func:`make_mesh` is the 1×1 mesh and
-nothing here communicates. The grapheme head stays replicated under
-tensor parallelism (JAX's vocab-parallel head, :97-103, is not ported).
+nothing here communicates. The grapheme head is split over the
+vocabulary (JAX :97-103): a model rank holds rows [r·⌈V/m⌉, (r+1)·⌈V/m⌉)
+of ``token_predictor`` (clipped at V), so a V the model axis does not
+divide gives the last ranks fewer rows (:func:`split_bounds`), as
+GSPMD's uneven shards do.
 """
 
 from __future__ import annotations
@@ -117,6 +120,10 @@ _RULES: list[tuple[tuple[str, ...], int]] = [
     (("ffn", "weight"), 0),
     (("ffn", "bias"), 0),
     (("ffn_output", "weight"), 1),
+    # the vocab-parallel grapheme head: JAX's kernel P(None, model) is
+    # the [V, H] weight's rows, its bias P(model)
+    (("token_predictor", "weight"), 0),
+    (("token_predictor", "bias"), 0),
 ]
 
 
@@ -169,13 +176,13 @@ def local_rows(array, mesh: Mesh, axis: int = 0):
     return array[tuple(index)]
 
 
-def global_shape(name: str, local_shape, mesh: Mesh) -> tuple:
-    """A parameter's full shape from this rank's shard of it."""
-    shape = list(local_shape)
-    dim = param_spec(name)
-    if mesh.model > 1 and dim is not None:
-        shape[dim] *= mesh.model
-    return tuple(shape)
+def split_bounds(size: int, parts: int, index: int) -> tuple[int, int]:
+    """[start, stop) of part ``index`` of ``size`` rows split ``parts``
+    ways: ⌈size/parts⌉ rows a part, the last parts clipped (``chunk``'s
+    split where it gives ``parts`` pieces)."""
+    per = -(-size // parts)
+    start = min(index * per, size)
+    return start, min(start + per, size)
 
 
 def shard(name: str, tensor: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -183,7 +190,8 @@ def shard(name: str, tensor: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     dim = param_spec(name)
     if mesh.model == 1 or dim is None:
         return tensor
-    return tensor.chunk(mesh.model, dim)[mesh.model_index]
+    start, stop = split_bounds(tensor.shape[dim], mesh.model, mesh.model_index)
+    return tensor.narrow(dim, start, stop - start)
 
 
 def zero1_shard(name: str, tensor: torch.Tensor, full_shape, mesh: Mesh) -> torch.Tensor:

@@ -146,8 +146,13 @@ def host_library_path() -> Path:
     include = sysconfig.get_paths()["include"]
     suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
     h = hashlib.sha256(NATIVE_SOURCE.read_bytes())
-    h.update(" ".join((os.environ.get("CXX", "g++"), *HOST_FLAGS, include)).encode())
+    h.update(" ".join((host_compiler(), *HOST_FLAGS, include)).encode())
     return BUILD_DIR / f"_plbert_native-{h.hexdigest()[:16]}{suffix}"
+
+
+def host_compiler() -> str:
+    """The host's C++ compiler: ``$CXX``, else g++."""
+    return os.environ.get("CXX", "g++")
 
 
 def build_host() -> Path:
@@ -160,7 +165,7 @@ def build_host() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
     include = sysconfig.get_paths()["include"]
-    _install([os.environ.get("CXX", "g++"), *HOST_FLAGS, f"-I{include}",
+    _install([host_compiler(), *HOST_FLAGS, f"-I{include}",
               str(NATIVE_SOURCE), "-o", str(tmp)], tmp, out)
     return out
 

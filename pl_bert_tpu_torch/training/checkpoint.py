@@ -198,8 +198,8 @@ def gather_state(model: torch.nn.Module, opt_state, mesh):
 
     def full(name: str, t: torch.Tensor) -> torch.Tensor:
         dim = param_spec(name)
-        if mesh.model > 1 and dim is not None:
-            return col.all_gather(t, mesh.model_group, dim)
+        if mesh.model > 1 and dim is not None:  # the head's rows may be uneven
+            return col.all_gather_uneven(t, mesh.model_group, dim)
         return t
 
     params = {n: full(n, t.detach()) for n, t in model.state_dict().items()}
@@ -242,18 +242,28 @@ def load_checkpoint(path: str, model: torch.nn.Module, opt_state, mesh=None) -> 
     tensor is cut to this rank's shard (and ZeRO-1 slice)."""
     ckpt = _load(path)
     _fill_params(model, ckpt["net"], mesh)
-    state = (ckpt.get("optimizer") or {}).get("state") or {}
+    optimizer = ckpt.get("optimizer") or {}
+    state = optimizer.get("state") or {}
     names = [n for n, _ in model.named_parameters()]
-    if len(state) != len(names):
+    # torch's AdamW indexes every parameter it was given but keeps state
+    # only for those it stepped: the reference never steps the unused
+    # pooler, so a reference save has no entry for it, and its moments
+    # start at zero (JAX export/from_torch.py:134-187 aligns them so)
+    indexed = sum(len(g["params"]) for g in optimizer.get("param_groups") or []) or len(state)
+    if indexed != len(names) or not state:
         raise ValueError(
-            f"{path}: optimizer state has {len(state)} entries, the model {len(names)} "
-            "parameters"
+            f"{path}: optimizer state indexes {indexed} parameters ({len(state)} with "
+            f"state), the model has {len(names)}"
         )
     count = 0
     with torch.no_grad():
         for i, name in enumerate(names):
             entry = state.get(i, state.get(str(i)))
             mu, nu = opt_state.moments[name]
+            if entry is None:
+                mu.zero_()
+                nu.zero_()
+                continue
             for dst, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
                 src = entry[key]
                 if mesh is not None:

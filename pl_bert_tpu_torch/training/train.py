@@ -401,6 +401,7 @@ class Trainer:
         # every rank builds the same full parameters, then keeps its shard
         self.model = init_params(build_model(mp, tp.mixed_precision, remat=tp.remat,
                                              mesh=mesh), seed=tp.seed)
+        full_shapes = {n: tuple(p.shape) for n, p in self.model.named_parameters()}
         if mesh is not None:
             shard_model(self.model, mesh)
         self.model.to(self.device)
@@ -518,7 +519,7 @@ class Trainer:
             if self.use_token_ids:
                 _check_token_vocab(_max_token_id(dataset), mp.num_token_vocab)
 
-        opt_state = None if eval_only else self.tx.init(self.model, mesh, tp.zero1)
+        opt_state = None if eval_only else self.tx.init(self.model, mesh, tp.zero1, full_shapes)
         self.state = TrainState(self.model, opt_state, 0)
         self.start_epoch = 0
         self.start_batch = 0

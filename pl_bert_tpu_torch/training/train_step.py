@@ -51,7 +51,9 @@ On a (data, model) mesh (``parallel/mesh.py``; the model's
 - with model ranks, each replicated parameter's gradient is made the
   same on all of them, so the parameters stay bitwise equal: under
   sequence parallelism the layer's saw only this rank's rows and are
-  summed over the model group, the others are model rank 0's;
+  summed over the model group, the others are model rank 0's; the
+  grapheme head is vocabulary-parallel (``ops/masked_ce.py``), so its
+  gradient is a sharded parameter's, local to the rank's rows;
 - the global gradient norm counts a sharded parameter's pieces once
   each and a replicated parameter once;
 - with ``zero1`` each data rank keeps and updates only its
@@ -74,12 +76,7 @@ import torch
 from pl_bert_tpu_torch.data.pipeline import to_device
 from pl_bert_tpu_torch.models.albert import MultiTaskModel, draw_dropout_seeds
 from pl_bert_tpu_torch.parallel import collectives as col
-from pl_bert_tpu_torch.parallel.mesh import (
-    global_shape,
-    mesh_shape,
-    param_spec,
-    zero1_partition,
-)
+from pl_bert_tpu_torch.parallel.mesh import mesh_shape, param_spec, zero1_partition
 from pl_bert_tpu_torch.ops.masked_ce import (
     masked_accuracy,
     masked_lm_loss,
@@ -145,16 +142,20 @@ class AdamW:
     def lr(self, count: int) -> float:
         return self.learning_rate if self.schedule is None else self.schedule(count)
 
-    def init(self, model: torch.nn.Module, mesh=None, zero1: bool = False) -> "OptState":
+    def init(self, model: torch.nn.Module, mesh=None, zero1: bool = False,
+             full_shapes: dict | None = None) -> "OptState":
         """Zero moments for ``model``'s parameters (this rank's shards);
         with ``zero1`` on a mesh with data ranks, only this data rank's
-        ``zero1_partition`` slice of each."""
+        ``zero1_partition`` slice of each, chosen from the parameter's full
+        shape: ``full_shapes[name]`` where the model holds shards (a shard's
+        shape does not tell where an uneven split lies), else its own."""
         parts = {}
         moments = {}
+        full_shapes = full_shapes or {}
         for n, p in model.named_parameters():
             dim = None
             if zero1 and mesh is not None:
-                dim = zero1_partition(n, global_shape(n, p.shape, mesh), mesh)
+                dim = zero1_partition(n, full_shapes.get(n, tuple(p.shape)), mesh)
             parts[n] = dim
             t = p if dim is None else p.chunk(mesh.data, dim)[mesh.data_index]
             moments[n] = (torch.zeros_like(t), torch.zeros_like(t))
@@ -311,6 +312,7 @@ def _forward_loss(model, mb: dict, deterministic: bool, dropout_seeds=None,
     loss_t = masked_lm_loss(
         hidden, head.weight, head.bias, mb["token_ids"], mb["mask_positions"], mb["lengths"],
         capacity=lm_head_capacity, fused=fused_lm_head, max_over=max_over,
+        vocab=model.vocab_slice(),
     )
     return logits, loss_p, loss_t
 
@@ -485,7 +487,7 @@ def make_eval_step(model, masking_params=None, lm_head_capacity: int = 144):
             head = model.token_predictor
             out += masked_lm_metrics(hidden, head.weight, head.bias, batch["token_ids"],
                                      mask, lengths, capacity=lm_head_capacity,
-                                     max_over=max_over)
+                                     max_over=max_over, vocab=model.vocab_slice())
         if max_over is not None:
             out = _global_metrics(out, mask, lengths, mesh)
         return tuple(out)

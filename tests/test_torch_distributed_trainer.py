@@ -8,7 +8,9 @@ held against one-process runs of the same config:
   relative of one process; ZeRO-1 bitwise the replicated update (losses,
   grad norms, the saved parameters and moments);
 - model 2 + sequence parallelism + ZeRO-1 on the multi-task model (block
-  path, accumulation 2, the grapheme head's gather), model 2 on the flash
+  path, accumulation 2, the grapheme head's gather; the head's 101 words
+  split 51/50 over the model ranks, against the one-process run's whole
+  head of 101), model 2 on the flash
   path, and model 2 + sequence parallelism with 3 heads (which do not
   divide the model axis: the attention runs whole on both ranks, on the
   eager path, as JAX's falls back to XLA): within 1e-5 of one process;
@@ -36,7 +38,7 @@ from pl_bert_tpu_torch.training import train as port_train
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = dict(hidden_size=128, num_attention_heads=2, intermediate_size=256,
              max_position_embeddings=64, num_hidden_layers=2, embedding_size=32, dropout=0.0)
-MULTITASK = dict(model={"num_token_vocab": 100}, grad_accum_steps=2, lm_head_capacity=8)
+MULTITASK = dict(model={"num_token_vocab": 101}, grad_accum_steps=2, lm_head_capacity=8)
 THREE_HEADS = {"hidden_size": 192, "num_attention_heads": 3}
 RTOL = 1e-5
 
@@ -106,7 +108,7 @@ def runs(tmp_path_factory):
         "dp": _write(tmp / "dp.yml", out, data_axis=2),
         "split": _write(tmp / "split.yml", out, data_axis=2, zero1=True, num_steps=2),
         "mt_sp": _write(tmp / "mt_sp.yml", out, model_axis=2, zero1=True,
-                        **dict(MULTITASK, model={"num_token_vocab": 100,
+                        **dict(MULTITASK, model={"num_token_vocab": 101,
                                                  "sequence_parallel": True})),
         "tp_flash": _write(tmp / "tp_flash.yml", out, model_axis=2,
                            model={"attention_impl": "pallas"}),
@@ -217,3 +219,38 @@ def test_resume_crosses_world_sizes(runs):
         assert torch.equal(mu, entry["exp_avg"]) and torch.equal(nu, entry["exp_avg_sq"])
         assert torch.equal(dict(trainer.model.named_parameters())[name], saved["net"][name])
     trainer.metrics.close()
+
+
+def test_vocab_parallel_checkpoint_is_whole_and_slices_back(runs, tmp_path):
+    """The two-rank multi-task run's ``step_4.pth`` holds the whole head
+    of 101 words (gathered from its 51 + 50 rows) with its moments; it
+    loads into one process, and cut back to each model rank of a 1×2
+    mesh gives that rank's rows; the export CLI writes the whole head."""
+    from pl_bert_tpu_torch.export import cli
+    from pl_bert_tpu_torch.models.albert import build_model
+    from pl_bert_tpu_torch.parallel.mesh import Mesh, shard_model, split_bounds
+
+    out = runs["out"]
+    path = out / "mt_sp" / "step_4.pth"
+    saved = torch.load(path, weights_only=True)
+    names = list(saved["net"])
+    i = names.index("token_predictor.weight")
+    assert saved["net"]["token_predictor.weight"].shape == (101, 128)
+    assert saved["net"]["token_predictor.bias"].shape == (101,)
+    assert saved["optimizer"]["state"][i]["exp_avg"].shape == (101, 128)
+    config = Config.load(str(out / "mt" / "mt.yml"))
+    for rank in (0, 1):
+        mesh = Mesh(1, 2, rank)
+        model = shard_model(build_model(config.model_params, "fp32"), mesh)
+        opt = port_train.make_optimizer(config.training_params).init(model)
+        ckpt.load_checkpoint(str(path), model, opt, mesh)
+        start, stop = split_bounds(101, 2, rank)
+        head = dict(model.named_parameters())["token_predictor.weight"]
+        assert head.shape == (stop - start, 128)
+        assert torch.equal(head, saved["net"]["token_predictor.weight"][start:stop])
+        assert torch.equal(opt.moments["token_predictor.weight"][1],
+                           saved["optimizer"]["state"][i]["exp_avg_sq"][start:stop])
+    cli.main(["--checkpoint_path", str(path), "--config_path", str(out / "mt" / "mt.yml"),
+              "--output_dir", str(tmp_path / "hf")])
+    full = torch.load(tmp_path / "hf" / "pl_bert_full_model.pt", weights_only=True)
+    assert torch.equal(full["token_predictor.weight"], saved["net"]["token_predictor.weight"])

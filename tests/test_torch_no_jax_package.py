@@ -6,7 +6,8 @@ builds on the CPU and answers a request, the port's Trainer runs a
 packed run and resumes it, a multi-task run trains and
 ``training/evaluate.py`` scores it, a corpus goes through the pack CLI,
 ``verify_store`` and the elastic launcher into a Trainer run from the
-packed store, a checkpoint goes through the export CLI into
+packed store, raw Arabic text goes through the clean, phonemize and
+tokenize stages, a checkpoint goes through the export CLI into
 ``from_hf_export`` and an int8 forward, and two ranks over gloo take a
 tensor- and sequence-parallel step with ZeRO-1 through the Trainer."""
 
@@ -73,7 +74,10 @@ def test_every_port_module_and_smoke_import_loads_without_the_jax_package(tmp_pa
                 "data.packed_store", "data.verify_store", "preprocess.shard_engine",
                 "preprocess.pipeline", "training.orchestrate", "runtime",
                 "export.safetensors", "export.to_hf", "export.cli", "ops.quant",
-                "serving.client", "parallel.mesh", "parallel.tp", "parallel.collectives"):
+                "serving.client", "parallel.mesh", "parallel.tp", "parallel.collectives",
+                "text.normalize", "text.arabic_numbers", "text.word_tokenizer",
+                "text.converters", "text.converters.Measure", "text.converters.numbers",
+                "preprocess.phonemize", "preprocess.diacritize", "data.dataset"):
         assert f"pl_bert_tpu_torch.{new}" in mods, new
     assert "pl_bert_tpu_torch.training.train" in smoke
     assert "pl_bert_tpu_torch.tools" in smoke or "pl_bert_tpu_torch.tools.bench_fused_ln" in smoke
@@ -278,6 +282,41 @@ print("launched")
 '''
     out = _run(code, tmp_path)
     assert "OK (full scan)" in out and out.split()[-1] == "launched"
+
+
+def test_text_stages_without_the_jax_package(tmp_path):
+    """clean → phonemize → tokenize through the port's pipeline CLI on a
+    small Arabic corpus (digits verbalised, Latin dropped), the shard
+    engine forking its workers, with the JAX package blocked."""
+    code = f'''
+import json, os, yaml
+from pl_bert_tpu_torch.preprocess import pipeline
+
+root = {str(tmp_path)!r}
+corpus = os.path.join(root, "corpus.txt")
+with open(corpus, "w", encoding="utf-8") as f:
+    f.write("ولد الكاتب عام 1986 في مدينة كبيرة، وكان يحب القراءة.\\n"
+            "كتب 3 رسائل hello إلى أصدقائه.\\n")
+cfg = os.path.join(root, "cfg.yml")
+yaml.safe_dump({{"preprocess_params": dict(num_shards=2, max_workers=2, max_try_count=1,
+    preprocess_dir=os.path.join(root, "prep"), cleaned_output_dir="cleaned",
+    g2p_backend="identity")}}, open(cfg, "w"))
+prep = os.path.join(root, "prep")
+pipeline.main(["--config_path", cfg, "--stage", "clean", "--local_dataset_path", corpus])
+pipeline.main(["--config_path", cfg, "--stage", "phonemize", "--dataset_path",
+               os.path.join(prep, "cleaned")])
+pipeline.main(["--config_path", cfg, "--stage", "tokenize", "--dataset_path",
+               os.path.join(prep, "cleaned.phonemized")])
+rows = [json.loads(l) for l in open(os.path.join(prep, "cleaned.phonemized.tokenized",
+                                                  "records.jsonl"), encoding="utf-8")]
+assert len(rows) == 2 and all(r["token_alignment"] == "exact" for r in rows), rows
+assert "1986" not in rows[0]["text"] and "hello" not in rows[1]["text"]
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "pl_bert_tpu"))
+assert not bad, bad
+print("stages", len(rows[0]["phonemes"]))
+'''
+    last = _run(code, tmp_path).splitlines()[-1].split()
+    assert last[0] == "stages" and int(last[1]) > 10
 
 
 def test_export_and_int8_serving_without_the_jax_package_or_transformers(tmp_path):

@@ -162,8 +162,12 @@ def test_pack_cli_writes_jax_main_packs_store(tmp_path, fmt, capsys):
     assert _files(ours) == _files(ref)
     for name in _files(ref):
         assert (ours / name).read_bytes() == (Path(ref) / name).read_bytes(), name
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pipeline.main(["--stage", "phonemize", "--dataset_path", str(ours)])
+    # the other stages run too; without their input they stop as JAX's
+    # parser.error stops them
+    with pytest.raises(SystemExit) as stop:
+        pipeline.main(["--stage", "phonemize", "--config_path", str(cfg_path)])
+    assert stop.value.code == 2
+    assert "--stage phonemize requires --dataset_path" in capsys.readouterr().err
 
 
 def _write_config(tmp_path, name="cfg.yml", model=None, dataset=None, **training):

@@ -5,7 +5,8 @@ the 8-device CPU mesh of tests/conftest.py, with no process group: the
 rank layout and JAX's errors, ``param_spec`` against ``param_shardings``
 and ``zero1_partition`` against ``zero1_shardings`` dimension for
 dimension (torch's layout is JAX's transposed for dense kernels) on a
-small multi-task model, and ``shard_seed_offset`` against
+small multi-task model (the vocabulary-parallel grapheme head included),
+the head's row split at even and uneven V, and ``shard_seed_offset`` against
 ``_shard_seed_offset`` under ``shard_map`` for every shard of a 4×2 mesh.
 """
 
@@ -84,18 +85,17 @@ def test_make_mesh_raises_jax_errors(data, model):
 
 def test_param_spec_matches_param_shardings(jax_params):
     """Every parameter's model-axis dimension, transposed for dense
-    kernels; the grapheme head is replicated in the port (JAX's
-    vocab-parallel head is not ported)."""
+    kernels; the grapheme head's too (vocabulary-parallel: the [V, H]
+    weight's rows and the bias)."""
     from pl_bert_tpu.parallel.mesh import MODEL_AXIS, param_shardings
 
     specs = param_shardings(_jax_mesh(4, 2), jax_params)
     for name, path, transpose in _MODEL_MAP + _TOKEN_MAP:
         ndim = np.ndim(_get(jax_params, path))
         want = _torch_dim(_axis_dim(_get(specs, path).spec, MODEL_AXIS, ndim), transpose, ndim)
-        if name.startswith("token_predictor."):
-            assert want is not None and port_mesh.param_spec(name) is None
-        else:
-            assert port_mesh.param_spec(name) == want, name
+        assert port_mesh.param_spec(name) == want, name
+    assert port_mesh.param_spec("token_predictor.weight") == 0
+    assert port_mesh.param_spec("token_predictor.bias") == 0
 
 
 @pytest.mark.parametrize("data,model", [(2, 1), (4, 1), (2, 2), (4, 2)])
@@ -107,13 +107,28 @@ def test_zero1_partition_matches_zero1_shardings(jax_params, data, model):
     specs = zero1_shardings(_jax_mesh(data, model), jax_params)
     cell = port_mesh.Mesh(data, model)
     for name, path, transpose in _MODEL_MAP + _TOKEN_MAP:
-        if model > 1 and name.startswith("token_predictor."):
-            continue  # replicated in the port (see above)
         arr = _get(jax_params, path)
         want = _torch_dim(_axis_dim(_get(specs, path).spec, DATA_AXIS, arr.ndim), transpose,
                           arr.ndim)
         shape = arr.shape[::-1] if transpose else arr.shape
         assert port_mesh.zero1_partition(name, shape, cell) == want, (name, data, model)
+
+
+@pytest.mark.parametrize("V,model", [(64, 2), (65, 2), (101, 2), (101, 4), (60000, 2)])
+def test_head_shards_cover_the_vocabulary(V, model):
+    """Each model rank's rows of the head: ⌈V/m⌉ or fewer, in rank order,
+    together the whole [V, H] weight and [V] bias."""
+    import torch
+
+    w, b = torch.randn(V, 4), torch.randn(V)
+    cells = [port_mesh.Mesh(1, model, r) for r in range(model)]
+    parts = [port_mesh.shard("token_predictor.weight", w, c) for c in cells]
+    assert all(p.shape[0] <= -(-V // model) for p in parts)
+    assert torch.equal(torch.cat(parts), w)
+    assert torch.equal(torch.cat([port_mesh.shard("token_predictor.bias", b, c)
+                                  for c in cells]), b)
+    starts = [port_mesh.split_bounds(V, model, r)[0] for r in range(model)]
+    assert starts == [sum(len(p) for p in parts[:r]) for r in range(model)]
 
 
 def test_shard_seed_offsets_match_jax():

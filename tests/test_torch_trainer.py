@@ -1,7 +1,8 @@
 """The port's Trainer entry point on the CPU, at a tiny size (2 layers,
 hidden 128, L 64, batch 4): resume, the JAX Trainer's loss trajectory,
 the packed on-device run on the flash path, checkpoint retention and
-tails, fault injection, and checkpoints across the two packages."""
+tails, fault injection, checkpoints across the two packages, and a
+reference save (no AdamW state for the unused pooler) resumed."""
 
 import json
 import os
@@ -263,6 +264,43 @@ def test_checkpoints_cross_the_two_packages(tmp_path):
     assert ckpt.load_checkpoint_meta(exported)["step"] == 7
 
 
+def test_reference_save_without_pooler_state_resumes(tmp_path):
+    """A reference ``step_N.pth`` whose torch AdamW never stepped the
+    unused pooler (no state entry for it) loads with the moments JAX's
+    ``from_torch`` aligns (zeros for the pooler, the update count the
+    largest step), and the Trainer resumes it in its run directory."""
+    from pl_bert_tpu.export.from_torch import _moment_state_dicts
+
+    cfg = Config.load(_write_config(tmp_path, model={"dropout": 0.0}))
+    torch.manual_seed(0)
+    model = port_train.build_model(cfg.model_params, "fp32")
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4)
+    for _ in range(2):
+        opt.zero_grad()
+        model(torch.randint(0, 188, (2, 64)), deterministic=False).pow(2).mean().backward()
+        opt.step()
+    saved = {"net": model.state_dict(), "step": 6, "epoch": 0,
+             "optimizer": opt.state_dict()}
+    assert len(saved["optimizer"]["state"]) == len(saved["net"]) - 2  # the pooler's two
+    run = tmp_path / "runs" / "migrated"
+    run.mkdir(parents=True)
+    torch.save(saved, run / "step_6.pth")
+    trainer = port_train.Trainer(cfg, str(tmp_path / "runs" / "fresh"), resuming=False,
+                                 device="cpu")
+    trainer.metrics.close()
+    meta = ckpt.load_checkpoint(str(run / "step_6.pth"), trainer.model,
+                                trainer.state.opt_state)
+    assert meta["step"] == 6 and trainer.state.opt_state.count == 2
+    mu, nu, count = _moment_state_dicts(saved["optimizer"], saved["net"])
+    assert count == 2
+    for name, (m, v) in trainer.state.opt_state.moments.items():
+        assert torch.equal(m, mu[name]) and torch.equal(v, nu[name]), name
+    assert not trainer.state.opt_state.moments["encoder.pooler.weight"][0].any()
+    cfg_path = _write_config(tmp_path, "migrated.yml", model={"dropout": 0.0}, num_steps=7)
+    (run / "migrated.yml").write_text(Path(cfg_path).read_text())
+    assert _run(cfg_path, "migrated") == 7
+
+
 def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
     cfg = Config.load(_write_config(tmp_path, dataset={"sequence_packing": True}))
     with pytest.raises(ValueError, match="requires ondevice_masking"):
@@ -277,7 +315,8 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
     assert calls == [("some/hub-id", "validation")]
     from pl_bert_tpu_torch.preprocess import pipeline
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pipeline.main(["--stage", "tokenize", "--dataset_path", str(tmp_path)])
+    with pytest.raises(SystemExit) as stop:  # JAX's parser.error: the stage runs, given input
+        pipeline.main(["--stage", "tokenize", "--config_path", _write_config(tmp_path, "s.yml")])
+    assert stop.value.code == 2
     args = port_train.parse_args(["--config_path", "c.yml", "--run_name", "r"])
     assert args == {"config_path": "c.yml", "run_name": "r", "device": "cuda"}
