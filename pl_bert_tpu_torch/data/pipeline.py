@@ -22,8 +22,11 @@ Upgrades over the reference:
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
+import time
+from dataclasses import dataclass
 from typing import Iterator
 
 import numpy as np
@@ -31,6 +34,7 @@ import torch
 
 from pl_bert_tpu_torch.data.collate import Batch, collate_fixed
 from pl_bert_tpu_torch.data.dataset import MaskedPhonemeDataset
+from pl_bert_tpu_torch.utils.profiler import PREFIX, span
 
 
 def split_train_val(
@@ -127,20 +131,32 @@ def to_device(batch: dict, device) -> dict:
     ``non_blocking`` on the current stream, which orders the copy before
     the kernels that read it."""
     device = torch.device(device)
+    moves = any(not isinstance(v, torch.Tensor) or v.device.type != device.type
+                for v in batch.values())
     out = {}
-    for k, v in batch.items():
-        t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
-        if device.type == "cuda" and t.device.type == "cpu":
-            t = t.pin_memory()
-        out[k] = t.to(device, non_blocking=True)
+    with span(PREFIX + "feed.h2d") if moves else contextlib.nullcontext():
+        for k, v in batch.items():
+            t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+            if device.type == "cuda" and t.device.type == "cpu":
+                t = t.pin_memory()
+            out[k] = t.to(device, non_blocking=True)
     return out
 
 
 _SENTINEL = object()
 
 
-def prefetch(iterator: Iterator, size: int = 2) -> Iterator:
-    """Run ``iterator`` in a daemon thread, buffering ``size`` items.
+@dataclass
+class Waits:
+    """Host seconds a consumer of :func:`prefetch` spent waiting for its
+    items, summed (the consumer's thread alone writes it)."""
+
+    seconds: float = 0.0
+
+
+def prefetch(iterator: Iterator, size: int = 2, waits: Waits | None = None) -> Iterator:
+    """Run ``iterator`` in a daemon thread, buffering ``size`` items;
+    each wait of the consumer for an item is added to ``waits``.
 
     Shuts the worker down when the CONSUMER stops early too (the normal
     num_steps exit leaves this generator mid-epoch): without the stop
@@ -153,7 +169,12 @@ def prefetch(iterator: Iterator, size: int = 2) -> Iterator:
 
     def worker() -> None:
         try:
-            for item in iterator:
+            it = iter(iterator)
+            while True:
+                with span(PREFIX + "feed.batch"):
+                    item = next(it, _SENTINEL)
+                if item is _SENTINEL:
+                    break
                 while not stop.is_set():
                     try:
                         q.put(item, timeout=0.1)
@@ -180,7 +201,11 @@ def prefetch(iterator: Iterator, size: int = 2) -> Iterator:
     thread.start()
     try:
         while True:
-            item = q.get()
+            t0 = time.perf_counter()
+            with span(PREFIX + "feed.wait"):
+                item = q.get()
+            if waits is not None:
+                waits.seconds += time.perf_counter() - t0
             if item is _SENTINEL:
                 if err:
                     raise err[0]

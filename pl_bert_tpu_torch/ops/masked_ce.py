@@ -40,11 +40,11 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from pl_bert_tpu_torch.parallel import collectives as col
 from pl_bert_tpu_torch.runtime.build import LaunchCounter
+from pl_bert_tpu_torch.utils.profiler import span
 
 # how often the grapheme head's gather held every row's valid positions,
 # and how often the exact full-length path ran instead
@@ -84,7 +84,7 @@ def _vocab_stats(logits, labels, vocab, top=None):
     the MAX all-reduce (skipped where ``top``, the global row max, is
     given), then one SUM all-reduce of the sum of exponentials and the
     label's logit."""
-    with record_function("lm_head.ce"):
+    with span("lm_head.ce"):
         x = logits.float()
         if top is None:
             top = _all_reduce(x.max(dim=-1).values, vocab, dist.ReduceOp.MAX)
@@ -163,14 +163,14 @@ def _logits(h, w_c, b_c):
     from its hidden states [B, c, H] or rows [B·c, H]. A chunk is copied
     to contiguous rows first: cuBLAS ran the strided [B, c, H] slice
     about 4.6 times slower on an H100 (PERF.md §6)."""
-    with record_function("lm_head.logits"):
+    with span("lm_head.logits"):
         return F.linear(h.reshape(-1, h.shape[-1]), w_c, b_c)
 
 
 def _log_softmax(logits):
     """fp32 log-probabilities of compute-dtype logits (the cast inside
     the softmax's own pass)."""
-    with record_function("lm_head.ce"):
+    with span("lm_head.ce"):
         return torch.log_softmax(logits, dim=-1, dtype=torch.float32)
 
 
@@ -254,7 +254,7 @@ def _fused_forward(hidden, weight, bias, labels, valid, w_pos, chunk_size: int,
         lab = labels[:, s:s + chunk_size]
         if vocab is None:
             logp = _log_softmax(_logits(h, w_c, b_c))
-            with record_function("lm_head.ce"):
+            with span("lm_head.ce"):
                 nll = _nll(logp, lab)
                 dlogits = logp.exp_()  # the softmax, in logp's place
                 del logp
@@ -263,28 +263,28 @@ def _fused_forward(hidden, weight, bias, labels, valid, w_pos, chunk_size: int,
         else:
             logits = _logits(h, w_c, b_c)
             logz, label_logit = _vocab_stats(logits, lab, vocab)
-            with record_function("lm_head.ce"):
+            with span("lm_head.ce"):
                 nll = (logz - label_logit).view(lab.shape)
                 dlogits = logits.float().sub_(logz[:, None]).exp_()
                 del logits
                 local, own = _own_labels(lab, dlogits.shape[-1], vocab)
                 dlogits.scatter_add_(-1, local[:, None], -own.float()[:, None])
-        with record_function("lm_head.ce"):
+        with span("lm_head.ce"):
             sums = sums + (nll * valid[:, s:s + chunk_size].float()).sum(dim=1)
             w = w_pos[:, s:s + chunk_size].reshape(-1)
             db += torch.mv(dlogits.T, w)
             dl = torch.empty(dlogits.shape, dtype=cdt, device=hidden.device)
             torch.mul(dlogits, w[:, None], out=dl)  # w·(softmax − onehot), rounded once
             del dlogits
-        with record_function("lm_head.dh"):
+        with span("lm_head.dh"):
             part = dl @ w_c if vocab is None else _mm_f32(dl, w_c)
             dh.append(part.view(B, -1, H))
-        with record_function("lm_head.dW"):
+        with span("lm_head.dW"):
             dW += _mm_f32(dl.T, h)
         del dl
     dh = torch.cat(dh, dim=1)
     if vocab is not None:
-        with record_function("lm_head.dh"):
+        with span("lm_head.dh"):
             dh = _all_reduce(dh, vocab).to(cdt)
     return _average(sums, valid.float().sum(dim=1)), dh, dW, db
 
@@ -336,7 +336,7 @@ def gather_valid(hidden, labels, valid, capacity: int):
     puts its valid positions first, in order (JAX's
     ``argsort(~valid, stable=True)``): (hidden, labels, valid) gathered
     to [B, capacity]."""
-    with record_function("lm_head.gather"):
+    with span("lm_head.gather"):
         idx = torch.argsort((~valid).to(torch.uint8), dim=1, stable=True)[:, :capacity]
         h = hidden.gather(1, idx[..., None].expand(-1, -1, hidden.shape[-1]))
         return h, labels.gather(1, idx), valid.gather(1, idx)
@@ -348,7 +348,7 @@ def fits_capacity(valid, capacity: int, max_over=None) -> bool:
     device, with ``lax.cond``). ``max_over`` (int → int) takes that count's
     maximum over the data-parallel ranks, so every rank takes the branch
     JAX's global ``lax.cond`` takes."""
-    with record_function("lm_head.capacity_read"):
+    with span("lm_head.capacity_read"):
         top = int(valid.sum(dim=1).max())
         fits = (top if max_over is None else max_over(top)) <= capacity
     (GATHERED if fits else FALLBACKS).add()

@@ -9,7 +9,11 @@ phoneme_loss, rolling mean over ``log_interval`` steps, validation loss
 each save interval, all rank-0 gated; wandb backend when available.
 
 Additions: a JSONL metrics file in the run dir (observability without
-network egress) and throughput (steps/sec, tokens/sec) tracking.
+network egress), throughput (steps/sec, and tokens/sec over the tokens
+the caller counts: the port's Trainer counts real, non-pad ones), and
+where the caller passes them, the mean host wait a step for the batch
+(``feed_wait_ms``) and the grapheme head's full-length fallbacks
+(``lm_head_fallbacks``) since the last record.
 """
 
 from __future__ import annotations
@@ -47,6 +51,9 @@ class MetricsLogger:
         self._last_time = time.perf_counter()
         self._last_step = None
         self._window_tokens = 0
+        self._window_steps = 0
+        self._window_wait_s = None
+        self._window_fallbacks = None
         if not self.enabled:
             return
         if wandb_project:
@@ -60,8 +67,12 @@ class MetricsLogger:
         os.makedirs(log_dir, exist_ok=True)
         self._file = open(os.path.join(log_dir, "metrics.jsonl"), "a", buffering=1)
 
-    def log_step(self, step: int, epoch: int, metrics: dict, tokens_per_batch: int = 0):
-        """Record one step's metrics.
+    def log_step(self, step: int, epoch: int, metrics: dict, tokens_per_batch: int = 0,
+                 feed_wait_s: float | None = None, lm_head_fallbacks: int | None = None):
+        """Record one step's metrics; ``feed_wait_s`` (host seconds the
+        step waited for its batch) and ``lm_head_fallbacks`` (the
+        grapheme head's full-length fallbacks in the step) are summed up
+        to the next record.
 
         ``metrics`` values may be device arrays — they are buffered as-is
         and only materialized every ``log_interval`` steps, so logging
@@ -76,6 +87,11 @@ class MetricsLogger:
         # step's tokens (a ragged grad-accum tail landing on the log
         # boundary would scale the whole window down by its fraction)
         self._window_tokens += tokens_per_batch
+        self._window_steps += 1
+        if feed_wait_s is not None:
+            self._window_wait_s = (self._window_wait_s or 0.0) + feed_wait_s
+        if lm_head_fallbacks is not None:
+            self._window_fallbacks = (self._window_fallbacks or 0) + lm_head_fallbacks
         if step % self.log_interval != 0:
             # keep the newest metrics so flush() can emit the final
             # partial window at the end of training
@@ -102,7 +118,7 @@ class MetricsLogger:
                 )
         self._last_time, self._last_step = now, step
         self._window_tokens = 0
-        self._emit(record)
+        self._emit(self._with_counters(record))
         parts = [f"step {step}", f"epoch {epoch}", f"loss {loss:.4f}"]
         if "phoneme_loss_avg" in record:
             parts.append(f"avg {record['phoneme_loss_avg']:.4f}")
@@ -122,7 +138,17 @@ class MetricsLogger:
             "epoch": epoch,
             **{k: float(v) for k, v in metrics.items()},
         }
-        self._emit(record)
+        self._emit(self._with_counters(record))
+
+    def _with_counters(self, record: dict) -> dict:
+        """``record`` with the counters summed since the last record (the
+        feed wait as a mean a step, in ms), which start again from 0."""
+        if self._window_wait_s is not None:
+            record["feed_wait_ms"] = 1e3 * self._window_wait_s / max(self._window_steps, 1)
+        if self._window_fallbacks is not None:
+            record["lm_head_fallbacks"] = self._window_fallbacks
+        self._window_steps, self._window_wait_s, self._window_fallbacks = 0, None, None
+        return record
 
     def log_validation(
         self, step: int, epoch: int, val_loss: float, val_acc: float,

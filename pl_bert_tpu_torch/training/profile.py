@@ -24,7 +24,7 @@ cuBLAS GEMMs, the rest), the device's busy share of the window, and its
 SM clock and power draw at the window's end (``nvidia-smi``); for
 the multi-task model also the grapheme head's device time by part (the
 gather, the logits, ``dh`` and ``dW`` GEMMs, the CE's elementwise
-passes, from ``ops/masked_ce.py``'s ``lm_head.*`` ranges), the encoder
+passes, from ``ops/masked_ce.py``'s ``lm_head.*`` spans), the encoder
 and the rest apart, and what each capacity read costs (the host's wait,
 the device's idle gap after it). Needs a CUDA card; there is no CPU
 fallback.
@@ -78,7 +78,7 @@ def busy_ms(intervals) -> float:
     return total / 1e3
 
 
-# the grapheme head's parts: ops/masked_ce.py's record_function ranges
+# the grapheme head's parts: ops/masked_ce.py's lm_head.* spans
 HEAD_PARTS = ("gather", "logits", "ce", "dh", "dW")
 CAPACITY_READ = "lm_head.capacity_read"
 
@@ -206,9 +206,10 @@ def main(argv=None) -> None:
             capture_output=True, text=True, check=True, timeout=60,
         ).stdout.strip()
     events = prof.events()
-    # device-side copies of the host's lm_head.* ranges are no kernels
+    # a record_function range (a user annotation) leaves a copy of itself
+    # among the device's events: no kernel
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith("lm_head.")]
+               and not e.is_user_annotation]
     if not kernels:
         raise SystemExit("profile: the trace holds no device activity")
     intervals = [(e.time_range.start, e.time_range.end) for e in kernels]
@@ -247,7 +248,7 @@ def main(argv=None) -> None:
         reads = capacity_reads(events, kernels)
         head_ms = sum(head.values())
         print("the grapheme head by part, ms a step (its kernels inside the host's "
-              "lm_head.* ranges; the gradient's scatter through the gather counts as other):")
+              "lm_head.* spans; the gradient's scatter through the gather counts as other):")
         for part in HEAD_PARTS:
             print(f"  {head[part] / n:9.3f}  {head[part] / device_ms:6.1%}  {part}")
         print(f"  {head_ms / n:9.3f}  {head_ms / device_ms:6.1%}  the head; the encoder and "

@@ -67,8 +67,9 @@ from pl_bert_tpu_torch.data.packed_store import (
     is_packed_store,
     open_packed_store,
 )
-from pl_bert_tpu_torch.data.pipeline import build_dataloader, prefetch, to_device
+from pl_bert_tpu_torch.data.pipeline import Waits, build_dataloader, prefetch, to_device
 from pl_bert_tpu_torch.models.albert import build_model, init_params
+from pl_bert_tpu_torch.ops import masked_ce
 from pl_bert_tpu_torch.preprocess.shard_engine import load_processed_dataset
 from pl_bert_tpu_torch.parallel import collectives as col
 from pl_bert_tpu_torch.parallel.mesh import local_rows, make_mesh, shard_model
@@ -326,6 +327,13 @@ def _adopt_packed_store(store, tp, dp):
 # spread of 18); the largest of 8192 samples' counts measured there was
 # 135, 2.34 times the mean (pl_bert_tpu/config.py:163-175)
 CAPACITY_WARN_FACTOR = 2.4
+
+
+def real_tokens(batch) -> int:
+    """The non-pad tokens of a host batch (a dict of arrays, stacked
+    micro-batches too, or a ``Batch``), counted from its lengths."""
+    lengths = batch["lengths"] if isinstance(batch, dict) else batch.lengths
+    return int(np.asarray(lengths).sum())
 
 
 def lm_head_capacity_warning(tp, dp) -> str | None:
@@ -717,8 +725,6 @@ class Trainer:
 
     def _train_loop(self) -> int:
         tp = self.config.training_params
-        dp = self.config.dataset_params
-        tokens_per_batch = tp.batch_size * dp.max_seq_length * tp.grad_accum_steps
 
         if self.current_step >= tp.num_steps:
             # already complete — never train past the configured budget on
@@ -740,32 +746,40 @@ class Trainer:
         # position; a fresh run starts at epoch 1, batch 0
         epoch = max(self.start_epoch, 1)
         start_batch = self.start_batch if self.start_epoch > 0 else 0
+        # the operator's counter of the step's wait for its batch
+        waits = Waits()
+        waited = 0.0
         while epoch <= tp.max_epochs:
             self._print(f"Starting epoch {epoch}")
             batch_idx = start_batch
             it = self._train_batches(epoch=epoch, start_batch=start_batch)
             start_batch = 0
             accum = tp.grad_accum_steps
+            # each step's real (non-pad) tokens, from the host batches'
+            # lengths: a ragged final accum group's empty micro-batches add 0
             if accum > 1:
                 feed = (
-                    (self._put(b, axis=1), c)
+                    (self._put(b, axis=1), c, real_tokens(b))
                     for b, c in self._group_micro(it, accum)
                 )
             else:
-                feed = ((self._put(b), 1) for b in it)
+                feed = ((self._put(b), 1, real_tokens(b)) for b in it)
             # the host-to-device copy starts inside the prefetch thread,
             # so it overlaps the previous step's device compute
-            for device_batch, consumed in prefetch(feed, size=2):
+            for device_batch, consumed, tokens in prefetch(feed, size=2, waits=waits):
+                # the grapheme head's full-length fallbacks in this step
+                # alone: validation never runs inside it
+                fell = masked_ce.FALLBACKS.count
                 self.state, metrics = self.train_step(self.state, device_batch)
+                fallbacks = masked_ce.FALLBACKS.count - fell if self.use_token_ids else None
                 self.current_step += 1
                 batch_idx += consumed
                 self.profiler.tick(self.current_step)
-                # a ragged final accum group consumed fewer loader
-                # batches — credit only the tokens actually stepped
-                step_tokens = tokens_per_batch * consumed // tp.grad_accum_steps
                 self.metrics.log_step(
-                    self.current_step, epoch, metrics, step_tokens
+                    self.current_step, epoch, metrics, tokens,
+                    feed_wait_s=waits.seconds - waited, lm_head_fallbacks=fallbacks,
                 )
+                waited = waits.seconds
                 if self.current_step % tp.save_interval == 0:
                     self._save(epoch, batch_idx)
                 self._maybe_inject_fault()

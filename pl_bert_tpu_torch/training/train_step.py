@@ -84,6 +84,7 @@ from pl_bert_tpu_torch.ops.masked_ce import (
     masked_phoneme_loss,
     samples_with_masks,
 )
+from pl_bert_tpu_torch.utils.profiler import PREFIX, span
 
 
 def check_ported(config) -> None:
@@ -304,17 +305,19 @@ def _forward_loss(model, mb: dict, deterministic: bool, dropout_seeds=None,
     (micro-)batch; the token loss is 0 for the phoneme-only model. The
     multi-task model's grapheme head never makes its [B, L, V] logits:
     ``masked_lm_loss`` projects the hidden states chunk by chunk."""
-    logits, hidden = _forward(model, mb, deterministic, dropout_seeds)
-    loss_p = masked_phoneme_loss(logits, mb["label_ids"], mb["mask_positions"], mb["lengths"])
-    if hidden is None:
-        return logits, loss_p, torch.zeros((), device=logits.device)
-    head = model.token_predictor
-    loss_t = masked_lm_loss(
-        hidden, head.weight, head.bias, mb["token_ids"], mb["mask_positions"], mb["lengths"],
-        capacity=lm_head_capacity, fused=fused_lm_head, max_over=max_over,
-        vocab=model.vocab_slice(),
-    )
-    return logits, loss_p, loss_t
+    with span(PREFIX + "step.forward"):
+        logits, hidden = _forward(model, mb, deterministic, dropout_seeds)
+        loss_p = masked_phoneme_loss(logits, mb["label_ids"], mb["mask_positions"],
+                                     mb["lengths"])
+        if hidden is None:
+            return logits, loss_p, torch.zeros((), device=logits.device)
+        head = model.token_predictor
+        loss_t = masked_lm_loss(
+            hidden, head.weight, head.bias, mb["token_ids"], mb["mask_positions"],
+            mb["lengths"], capacity=lm_head_capacity, fused=fused_lm_head, max_over=max_over,
+            vocab=model.vocab_slice(),
+        )
+        return logits, loss_p, loss_t
 
 
 def _apply_ondevice_masking(batch: dict, mask_seed: int, masking_params,
@@ -380,22 +383,26 @@ def make_train_step(model, tx: AdamW, grad_accum: int = 1, seed: int = 1,
         if masking_params is None:
             return mb
         mask_seed = int(torch.randint(0, 2**62, (1,), generator=gen))
-        return _apply_ondevice_masking(mb, mask_seed, masking_params, mesh)
+        with span(PREFIX + "step.mask"):
+            return _apply_ondevice_masking(mb, mask_seed, masking_params, mesh)
 
     def step(state: TrainState, batch: dict):
+        with span(PREFIX + "step"):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: dict):
         _check_batch(batch, masking_params)
         device = next(state.model.parameters()).device
         batch = to_device(batch, device)
         gen = torch.Generator().manual_seed(seed * 2**32 + state.step)
         state.model.zero_grad(set_to_none=True)
+        denom = None
         if grad_accum == 1 and data == 1:
             batch = masked(batch, gen)
             _, loss_p, loss_t = _forward_loss(state.model, batch, False,
                                               draw_dropout_seeds(gen, n_layers), **head)
-            (loss_p + loss_t).backward()
-            grads = {n: p.grad for n, p in state.model.named_parameters()
-                     if p.grad is not None}
-            grads = reduce_grads(grads, mesh, sp)
+            with span(PREFIX + "step.backward"):
+                (loss_p + loss_t).backward()
             loss_p, loss_t = loss_p.detach(), loss_t.detach()
         else:
             # each micro-batch's losses weighted by its samples with masks,
@@ -408,7 +415,8 @@ def make_train_step(model, tx: AdamW, grad_accum: int = 1, seed: int = 1,
                 n = samples_with_masks(mb["mask_positions"], mb["lengths"])
                 _, loss_p, loss_t = _forward_loss(state.model, mb, False,
                                                   draw_dropout_seeds(gen, n_layers), **head)
-                ((loss_p + loss_t) * n).backward()
+                with span(PREFIX + "step.backward"):
+                    ((loss_p + loss_t) * n).backward()
                 p_sum += loss_p.detach() * n
                 t_sum += loss_t.detach() * n
                 n_sum += n
@@ -416,20 +424,22 @@ def make_train_step(model, tx: AdamW, grad_accum: int = 1, seed: int = 1,
                 sums = col.all_reduce_(torch.stack([p_sum, t_sum, n_sum]), mesh.data_group)
                 p_sum, t_sum, n_sum = sums.unbind()
             denom = n_sum.clamp_min(1.0)
+            loss_p, loss_t = p_sum / denom, t_sum / denom
+        with span(PREFIX + "step.optimizer"):
             grads = reduce_grads({n: p.grad for n, p in state.model.named_parameters()
                                   if p.grad is not None}, mesh, sp)
-            grads = {n: g / denom for n, g in grads.items()}
-            loss_p, loss_t = p_sum / denom, t_sum / denom
-        norm = sharded_norm(grads, mesh)
-        metrics = {
-            "loss": loss_p + loss_t,
-            "phoneme_loss": loss_p,
-            "token_loss": loss_t,
-            "grad_norm": norm,
-            "lr": tx.lr(state.opt_state.count),
-        }
-        tx.update(state.model, grads, state.opt_state, norm)
-        state.model.zero_grad(set_to_none=True)
+            if denom is not None:
+                grads = {n: g / denom for n, g in grads.items()}
+            norm = sharded_norm(grads, mesh)
+            metrics = {
+                "loss": loss_p + loss_t,
+                "phoneme_loss": loss_p,
+                "token_loss": loss_t,
+                "grad_norm": norm,
+                "lr": tx.lr(state.opt_state.count),
+            }
+            tx.update(state.model, grads, state.opt_state, norm)
+            state.model.zero_grad(set_to_none=True)
         state.step += 1
         return state, metrics
 

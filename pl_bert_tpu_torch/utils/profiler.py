@@ -2,9 +2,13 @@
 
 The counterpart of ``pl_bert_tpu/utils/profiler.py`` on
 ``torch.profiler``: Chrome traces (viewable in Perfetto) of host and
-device activity. Enable in training via the ``PLBERT_PROFILE_DIR`` env
-var (traces the configured step window) or use :func:`profile_trace`
-directly around any region.
+device activity, of every thread (the Trainer's prefetch thread among
+them). Enable in training via the ``PLBERT_PROFILE_DIR`` env var (traces
+the configured step window).
+
+:func:`span` marks the port's layers on the training path in whatever
+``torch.profiler`` runs: the feed, the step and its phases (masking,
+forward, backward, optimizer) and the grapheme head's parts.
 """
 
 from __future__ import annotations
@@ -13,13 +17,40 @@ import contextlib
 import os
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+# the first part of every span name the port records on the training
+# path (the grapheme head's ``lm_head.*`` ranges keep their own names)
+PREFIX = "plbert."
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A range called ``name`` in the trace of a running
+    ``torch.profiler``, on its clock, with the device time of the kernels
+    launched inside it (``device_time_total``); one shared no-op context
+    when no profiler runs, so the check is all an untraced step pays.
+
+    The range is a plain function-scope record, not a
+    ``record_function`` user annotation: a user annotation also leaves a
+    copy of itself among the device's events, which a reader of the
+    trace would count as a kernel. The module-level flag is read because
+    it is True in every thread while a profiler runs, where
+    ``torch.autograd._profiler_enabled()`` answers for the calling
+    thread alone."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _OFF
 
 
 def _start():
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=acts)
+    # every thread's ranges: without it the profiler records only the
+    # thread that started it, and the feed's spans are lost
+    every_thread = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    prof = torch.profiler.profile(activities=acts, experimental_config=every_thread)
     prof.start()
     return prof
 
@@ -30,17 +61,6 @@ def _stop(prof, log_dir: str, name: str) -> str:
     path = os.path.join(log_dir, name)
     prof.export_chrome_trace(path)
     return path
-
-
-@contextlib.contextmanager
-def profile_trace(log_dir: str):
-    """Capture a torch.profiler trace for the enclosed region into
-    ``log_dir/trace.json``."""
-    prof = _start()
-    try:
-        yield log_dir
-    finally:
-        _stop(prof, log_dir, "trace.json")
 
 
 class maybe_profile:
