@@ -49,7 +49,9 @@
 // (batch, head): q.k, do.v^T, pd^T.do, ds.k, ds^T.q, far above the ridge,
 // so the tensor cores bound it. It forms ten (q.k four times, do.v^T
 // twice more: the dq kernel's three passes over the keys and the dk/dv
-// kernel each form their own). Every score it forms is the
+// kernel each form their own). With segments the three tensor-core kernels
+// form them only on the tile pairs a query can see a key in (tile_walk,
+// below; the same bits). Every score it forms is the
 // forward's own: the S tile (qk_tile), the score rule (score_tile) and the
 // online row max and denominator (stats_tile) are the functions the
 // forward calls, with queries the 64-row A operand in every kernel, so
@@ -632,22 +634,107 @@ __device__ __forceinline__ void stats_tile(const float (&sc)[32], float (&m_run)
 // the normalised probability, as the forward forms it before dropout
 __device__ __forceinline__ float prob(float s, float m, float l) { return expf(s - m) / l; }
 
+// --- the tiles a packed row's segments can see -------------------------------------
+//
+// With segments, the three tensor-core kernels walk a (query tile, key tile)
+// pair only where a query row of the one can see a key of the other
+// (tiles_meet, on the ranges tile_segments finds), and a query tile that
+// holds a padding or closed row walks every key tile; the skipped pairs
+// would add exact zeros, so the bits are those of the whole walk
+// (flash_attention.cu says why).
+
+// The segments of the n 64-row tiles of batch item b, into shared memory:
+// lo[j]..hi[j] the least and largest segment >= 0 among tile j's rows < L
+// (lo > hi where it has none), pad[j] != 0 where one of those rows is
+// padding or its bias closed. Every thread takes part, a warp a tile.
+__device__ __forceinline__ void tile_segments(const float* __restrict__ seg_row,
+                                              const float* __restrict__ bias_row, int b, int L,
+                                              int n, float* lo, float* hi, int* pad) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int j = warp; j < n; j += blockDim.x / 32) {
+    float mn = CUDART_INF_F, mx = -CUDART_INF_F;
+    bool open = true;
+#pragma unroll
+    for (int c = lane; c < 64; c += 32) {
+      const int r = j * 64 + c;
+      if (r >= L) continue;
+      const float s = seg_row[(size_t)b * L + r];
+      if (s >= 0.f) {
+        mn = fminf(mn, s);
+        mx = fmaxf(mx, s);
+      } else {
+        open = false;
+      }
+      if (bias_row && !(bias_row[(size_t)b * L + r] > kNeg)) open = false;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    }
+    const bool all_open = __all_sync(0xffffffffu, open);
+    if (lane == 0) {
+      lo[j] = mn;
+      hi[j] = mx;
+      pad[j] = !all_open;
+    }
+  }
+}
+
+// whether query tile qt and key tile kt are walked
+__device__ __forceinline__ bool tiles_meet(const float* lo, const float* hi, const int* pad,
+                                           int qt, int kt) {
+  return pad[qt] || (lo[qt] <= hi[kt] && lo[kt] <= hi[qt]);
+}
+
+// shared memory for the walk of n tiles: lo, hi, pad and the walk itself
+constexpr size_t walk_smem(int n) { return 16 * (size_t)n; }
+
+// The tiles a block on tile `own` walks with segments, ascending, into
+// walk[0..w) (after lo, hi and pad in shared memory), visible to every
+// thread on return; returns w. `own` is a query tile, or with `keys_own` a
+// key tile whose query tiles are walked. Every thread calls it. The kernels
+// call it only with segments (without, the walk is all n tiles, tile j of
+// it tile j); not inlined, as inlined it took their main loops 15-25 more
+// registers.
+__device__ __noinline__ int tile_walk(const float* __restrict__ seg_row,
+                                      const float* __restrict__ bias_row, int b, int L, int n,
+                                      int own, bool keys_own, float* lo) {
+  float* hi = lo + n;
+  int* pad = reinterpret_cast<int*>(hi + n);
+  int* walk = pad + n;
+  tile_segments(seg_row, bias_row, b, L, n, lo, hi, pad);
+  __syncthreads();
+  int count = 0;
+  for (int j = 0; j < n; ++j) {
+    if (!(keys_own ? tiles_meet(lo, hi, pad, j, own) : tiles_meet(lo, hi, pad, own, j)))
+      continue;
+    if (threadIdx.x == 0) walk[count] = j;
+    ++count;
+  }
+  __syncthreads();
+  return count;
+}
+
 // --- the bf16 forward on the tensor cores ---------------------------------------
 
 // Q, a two-buffer ring of K and of V tiles (64 rows x D, D/64 boxes of
-// 8 KB each), the key tiles' bias and segments, three barriers
+// 8 KB each), the key tiles' bias and segments, three barriers, the walk of
+// the n key tiles
 template <int D>
-constexpr size_t fwd_sm90_smem() {
-  return 1024 + 5 * (D / 64) * 8192 + 4 * AK * sizeof(float) + 3 * sizeof(uint64_t);
+constexpr size_t fwd_sm90_smem(int n) {
+  return 1024 + 5 * (D / 64) * 8192 + 4 * AK * sizeof(float) + 3 * sizeof(uint64_t) +
+         walk_smem(n);
 }
 
 // attention_fwd's function for bf16, on the tensor cores; one warpgroup per
 // (64-row query tile, head, batch item). Warp w holds query rows 16w..16w+15:
 // thread (lane) rows r0 = 16w + lane/4 and r0 + 8, and of each key tile the
 // columns 8c + 2(lane%4) + {0, 1}, c < 8 -- the wgmma accumulator layout.
-// The loads are a sequence of 2n tiles (n = key tiles): pass 1's K tiles,
-// then pass 2's K and V tiles, load i into buffer i % 2, issued by thread 0
-// once every warp has finished with load i - 2.
+// The loads are a sequence of 2w tiles (w the key tiles walked, all n
+// without segments): pass 1's K tiles, then pass 2's K and V tiles, load i
+// into buffer i % 2, issued by thread 0 once every warp has finished with
+// load i - 2.
 template <int D>
 __global__ void __launch_bounds__(128)
 attention_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
@@ -664,30 +751,15 @@ attention_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
   float* kbias = reinterpret_cast<float*>(Vs + 2 * TILE);  // [2][64]
   float* kseg = kbias + 2 * AK;                             // [2][64]
   uint64_t* bar = reinterpret_cast<uint64_t*>(kseg + 2 * AK);  // buffers 0, 1; Q
+  float* tiles = reinterpret_cast<float*>(bar + 3);  // the walk's lo, hi, pad, walk
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane % 4;
   const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
   const uint32_t stream = (uint32_t)(b * H + h);
   const int n = (L + AK - 1) / AK;
+  const int* walk = reinterpret_cast<const int*>(tiles + 3 * n);
   const bool use_seg = seg_row != nullptr;
-
-  auto load = [&](int i) {  // thread 0
-    const int s = i & 1, k0 = (i % n) * AK;
-    const bool with_v = i >= n;
-    mbar_expect_tx(&bar[s], (with_v ? 2u : 1u) * TILE);
-#pragma unroll
-    for (int c = 0; c < D / 64; ++c) {
-      tma_load_3d(Ks + s * TILE + c * 8192, &kmap, &bar[s], h * D + 64 * c, k0, b);
-      if (with_v) tma_load_3d(Vs + s * TILE + c * 8192, &vmap, &bar[s], h * D + 64 * c, k0, b);
-    }
-  };
-  auto load_keys = [&](int i) {  // the padding bias and segment of load i's keys
-    if (tid < AK) {
-      const int s = i & 1, k = (i % n) * AK + tid;
-      kbias[s * AK + tid] = (k < L && bias_row) ? bias_row[(size_t)b * L + k] : 0.f;
-      kseg[s * AK + tid] = (k < L && use_seg) ? seg_row[(size_t)b * L + k] : 0.f;
-    }
-  };
+  auto tile = [&](int j) { return use_seg ? walk[j] : j; };  // tile j of the walk
 
   if (tid == 0) {
     for (int i = 0; i < 3; ++i) mbar_init(&bar[i], 1);
@@ -699,8 +771,30 @@ attention_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int c = 0; c < D / 64; ++c)
       tma_load_3d(Qs + c * 8192, &qmap, &bar[2], h * D + 64 * c, q0, b);
+  }
+  const int w = use_seg ? tile_walk(seg_row, bias_row, b, L, n, blockIdx.x, false, tiles) : n;
+
+  auto load = [&](int i) {  // thread 0
+    const int s = i & 1, k0 = tile(i % w) * AK;
+    const bool with_v = i >= w;
+    mbar_expect_tx(&bar[s], (with_v ? 2u : 1u) * TILE);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+      tma_load_3d(Ks + s * TILE + c * 8192, &kmap, &bar[s], h * D + 64 * c, k0, b);
+      if (with_v) tma_load_3d(Vs + s * TILE + c * 8192, &vmap, &bar[s], h * D + 64 * c, k0, b);
+    }
+  };
+  auto load_keys = [&](int i) {  // the padding bias and segment of load i's keys
+    if (tid < AK) {
+      const int s = i & 1, k = tile(i % w) * AK + tid;
+      kbias[s * AK + tid] = (k < L && bias_row) ? bias_row[(size_t)b * L + k] : 0.f;
+      kseg[s * AK + tid] = (k < L && use_seg) ? seg_row[(size_t)b * L + k] : 0.f;
+    }
+  };
+
+  if (tid == 0) {
     load(0);
-    load(1);  // 2n >= 2
+    load(1);  // 2w >= 2
   }
   load_keys(0);
   load_keys(1);
@@ -718,14 +812,14 @@ attention_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
   float acc[D / 2];
 #pragma unroll
   for (int r = 0; r < D / 2; ++r) acc[r] = 0.f;
-  for (int i = 0; i < 2 * n; ++i) {
-    const int s = i & 1, k0 = (i % n) * AK;
+  for (int i = 0; i < 2 * w; ++i) {
+    const int s = i & 1, k0 = tile(i % w) * AK;
     mbar_wait(&bar[s], (i >> 1) & 1);
     __syncwarp();
     float sc[32];
     qk_tile<D>(sc, Qs, Ks + s * TILE);
     score_tile(sc, kbias + s * AK, kseg + s * AK, qseg, use_seg, k0, L, scale);
-    if (i < n) {  // pass 1: the row max and denominator, online
+    if (i < w) {  // pass 1: the row max and denominator, online
       stats_tile(sc, m_run, l_run);
     } else {  // pass 2: p normalised, dropped out, rounded; o += p . v
       uint32_t pa[16];
@@ -755,7 +849,7 @@ attention_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
       promote(acc, part);
     }
     __syncthreads();  // every warp is done with buffer s
-    if (i + 2 < 2 * n) {
+    if (i + 2 < 2 * w) {
       if (tid == 0) load(i + 2);
       load_keys(i + 2);
     }
@@ -795,11 +889,11 @@ inline bool rows_map(CUtensorMap* map, Rows<const __nv_bfloat16> r, int B, int L
 // The block's own pair of tiles (Q and dO, or K and V), a two-buffer ring of
 // the other pair, with `transposed` the pd and ds tiles the dk/dv kernel
 // writes for wgmma to read transposed, the key tiles' bias and segments,
-// three barriers
+// three barriers, the walk of the n tiles of the other side
 template <int D>
-constexpr size_t bwd_sm90_smem(bool transposed) {
+constexpr size_t bwd_sm90_smem(bool transposed, int n) {
   return 1024 + 6 * (D / 64) * 8192 + (transposed ? 2 * 8192 : 0) + 4 * AK * sizeof(float) +
-         3 * sizeof(uint64_t);
+         3 * sizeof(uint64_t) + walk_smem(n);
 }
 
 // ds = (pd . dpd - p . delta) * scale with every product and difference
@@ -823,9 +917,10 @@ __device__ __forceinline__ void st_pair_sw128(uint8_t* tile, int row, int c, int
 // statistics (K8, whose forward saved nothing): one warpgroup per (64-row
 // query tile, head, batch item), in the forward's thread layout. Q and dO
 // arrive once; the key side is a sequence of loads through a two-buffer
-// ring, three passes over the n key tiles:
+// ring, three passes over the w key tiles walked (tile_walk: all n without
+// segments):
 //   pass 0: m and l with the forward's code (K tiles only), written to
-//     stat_m/stat_l for the dk/dv kernel;
+//     stat_m/stat_l for the dk/dv kernel after the last walked tile;
 //   pass 1: delta = sum_j dpd.pd from the unrounded pd, dpd = do.v^T on
 //     wgmma;
 //   pass 2: ds rounded to bf16 in registers is wgmma's A operand for
@@ -849,30 +944,15 @@ attention_bwd_dq_sm90(const __grid_constant__ CUtensorMap qmap,
   float* kbias = reinterpret_cast<float*>(Vs + 2 * TILE);  // [2][64]
   float* kseg = kbias + 2 * AK;                             // [2][64]
   uint64_t* bar = reinterpret_cast<uint64_t*>(kseg + 2 * AK);  // buffers 0, 1; Q and dO
+  float* tiles = reinterpret_cast<float*>(bar + 3);  // the walk's lo, hi, pad, walk
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane % 4;
   const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
   const uint32_t stream = (uint32_t)(b * H + h);
-  const int n = (L + AK - 1) / AK, total = 3 * n;
+  const int n = (L + AK - 1) / AK;
+  const int* walk = reinterpret_cast<const int*>(tiles + 3 * n);
   const bool use_seg = seg_row != nullptr;
-
-  auto load = [&](int i) {  // thread 0: load i's K tile, and its V tile after pass 0
-    const int s = i & 1, k0 = (i % n) * AK;
-    const bool with_v = i >= n;
-    mbar_expect_tx(&bar[s], (with_v ? 2u : 1u) * TILE);
-#pragma unroll
-    for (int c = 0; c < D / 64; ++c) {
-      tma_load_3d(Ks + s * TILE + c * 8192, &kmap, &bar[s], h * D + 64 * c, k0, b);
-      if (with_v) tma_load_3d(Vs + s * TILE + c * 8192, &vmap, &bar[s], h * D + 64 * c, k0, b);
-    }
-  };
-  auto load_keys = [&](int i) {  // the padding bias and segment of load i's keys
-    if (tid < AK) {
-      const int s = i & 1, k = (i % n) * AK + tid;
-      kbias[s * AK + tid] = (k < L && bias_row) ? bias_row[(size_t)b * L + k] : 0.f;
-      kseg[s * AK + tid] = (k < L && use_seg) ? seg_row[(size_t)b * L + k] : 0.f;
-    }
-  };
+  auto tile = [&](int j) { return use_seg ? walk[j] : j; };  // tile j of the walk
 
   if (tid == 0) {
     for (int i = 0; i < 3; ++i) mbar_init(&bar[i], 1);
@@ -886,6 +966,29 @@ attention_bwd_dq_sm90(const __grid_constant__ CUtensorMap qmap,
       tma_load_3d(Qs + c * 8192, &qmap, &bar[2], h * D + 64 * c, q0, b);
       tma_load_3d(dOs + c * 8192, &dmap, &bar[2], h * D + 64 * c, q0, b);
     }
+  }
+  const int w = use_seg ? tile_walk(seg_row, bias_row, b, L, n, blockIdx.x, false, tiles) : n,
+            total = 3 * w;
+
+  auto load = [&](int i) {  // thread 0: load i's K tile, and its V tile after pass 0
+    const int s = i & 1, k0 = tile(i % w) * AK;
+    const bool with_v = i >= w;
+    mbar_expect_tx(&bar[s], (with_v ? 2u : 1u) * TILE);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+      tma_load_3d(Ks + s * TILE + c * 8192, &kmap, &bar[s], h * D + 64 * c, k0, b);
+      if (with_v) tma_load_3d(Vs + s * TILE + c * 8192, &vmap, &bar[s], h * D + 64 * c, k0, b);
+    }
+  };
+  auto load_keys = [&](int i) {  // the padding bias and segment of load i's keys
+    if (tid < AK) {
+      const int s = i & 1, k = tile(i % w) * AK + tid;
+      kbias[s * AK + tid] = (k < L && bias_row) ? bias_row[(size_t)b * L + k] : 0.f;
+      kseg[s * AK + tid] = (k < L && use_seg) ? seg_row[(size_t)b * L + k] : 0.f;
+    }
+  };
+
+  if (tid == 0) {
     load(0);
     load(1);  // total >= 3
   }
@@ -905,7 +1008,7 @@ attention_bwd_dq_sm90(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
   for (int r = 0; r < D / 2; ++r) acc[r] = 0.f;
   for (int i = 0; i < total; ++i) {
-    const int s = i & 1, pass = i / n, k0 = (i % n) * AK;
+    const int s = i & 1, pass = i / w, k0 = tile(i % w) * AK;
     mbar_wait(&bar[s], (i >> 1) & 1);
     __syncwarp();
     float sc[32];
@@ -913,7 +1016,7 @@ attention_bwd_dq_sm90(const __grid_constant__ CUtensorMap qmap,
     score_tile(sc, kbias + s * AK, kseg + s * AK, qseg, use_seg, k0, L, scale);
     if (pass == 0) {
       stats_tile(sc, m, l);
-      if (i == n - 1) {  // the statistics are complete: dk/dv reads them
+      if (i == w - 1) {  // the statistics are complete: dk/dv reads them
 #pragma unroll
         for (int ih = 0; ih < 2; ++ih) {
           const int qr = q0 + r0 + 8 * ih;
@@ -944,7 +1047,7 @@ attention_bwd_dq_sm90(const __grid_constant__ CUtensorMap qmap,
           da[r / 2] = *reinterpret_cast<const uint32_t*>(&pair);
         }
       }
-      if (pass == 1 && i % n == n - 1) {  // delta's pass is done: sum over the quad
+      if (pass == 1 && i % w == w - 1) {  // delta's pass is done: sum over the quad
 #pragma unroll
         for (int ih = 0; ih < 2; ++ih) {
           delta[ih] += __shfl_xor_sync(0xffffffffu, delta[ih], 1);
@@ -993,7 +1096,8 @@ attention_bwd_dq_sm90(const __grid_constant__ CUtensorMap qmap,
 
 // attention_bwd_dkdv's function for bf16 on the tensor cores: one
 // warpgroup per (64-row key tile, head, batch item), K and V loaded once,
-// looping over the query tiles (Q and dO through a two-buffer ring). Each
+// looping over the query tiles that tile_walk finds can see this key tile
+// (all of them without segments; Q and dO through a two-buffer ring). Each
 // query tile's S = Q K^T is the forward's own tile (queries the A operand),
 // so p = exp(s - m)/l from the saved m and l is the forward's p bit for bit.
 // pd (for dv) and ds (for dk) go to shared memory in bf16, in the swizzled
@@ -1002,9 +1106,10 @@ attention_bwd_dq_sm90(const __grid_constant__ CUtensorMap qmap,
 // products promoted. One program owns each key tile: no float atomics, the
 // sums deterministic. DV and DK choose what a launch accumulates: both at
 // D = 64; at D = 128 two launches, one each, to keep the accumulators in
-// registers.
+// registers. At D = 64 three blocks an SM, as many as its shared memory
+// holds (registers capped at 168, 16 bytes spilled; at 181 two fit).
 template <int D, bool DV, bool DK>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(128, D == 64 ? 3 : 1)
 attention_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap kmap,
                         const __grid_constant__ CUtensorMap vmap,
@@ -1024,20 +1129,23 @@ attention_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap qmap,
   float* kbias = reinterpret_cast<float*>(DSs + 8192);  // [64]
   float* kseg = kbias + AK;                              // [64]
   uint64_t* bar = reinterpret_cast<uint64_t*>(kseg + AK);  // buffers 0, 1; K and V
+  float* tiles = reinterpret_cast<float*>(bar + 3);  // the walk's lo, hi, pad, walk
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t = lane % 4;
   const int k0 = blockIdx.x * AK, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
   const uint32_t stream = (uint32_t)(b * H + h);
   const int n = (L + AQ - 1) / AQ;  // query tiles
+  const int* walk = reinterpret_cast<const int*>(tiles + 3 * n);
   const bool use_seg = seg_row != nullptr;
+  auto tile = [&](int j) { return use_seg ? walk[j] : j; };  // tile j of the walk
 
-  auto load = [&](int i) {  // thread 0: query tile i's Q and dO
-    const int s = i & 1;
+  auto load = [&](int i) {  // thread 0: walked query tile i's Q and dO
+    const int s = i & 1, q0 = tile(i) * AQ;
     mbar_expect_tx(&bar[s], 2 * TILE);
 #pragma unroll
     for (int c = 0; c < D / 64; ++c) {
-      tma_load_3d(Qs + s * TILE + c * 8192, &qmap, &bar[s], h * D + 64 * c, i * AQ, b);
-      tma_load_3d(dOs + s * TILE + c * 8192, &dmap, &bar[s], h * D + 64 * c, i * AQ, b);
+      tma_load_3d(Qs + s * TILE + c * 8192, &qmap, &bar[s], h * D + 64 * c, q0, b);
+      tma_load_3d(dOs + s * TILE + c * 8192, &dmap, &bar[s], h * D + 64 * c, q0, b);
     }
   };
 
@@ -1053,8 +1161,11 @@ attention_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap qmap,
       tma_load_3d(Ks + c * 8192, &kmap, &bar[2], h * D + 64 * c, k0, b);
       tma_load_3d(Vs + c * 8192, &vmap, &bar[2], h * D + 64 * c, k0, b);
     }
+  }
+  const int w = use_seg ? tile_walk(seg_row, bias_row, b, L, n, blockIdx.x, true, tiles) : n;
+  if (tid == 0) {
     load(0);
-    if (n > 1) load(1);
+    if (w > 1) load(1);
   }
   if (tid < AK) {
     const int k = k0 + tid;
@@ -1068,8 +1179,8 @@ attention_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap qmap,
   float dk[D / 2], dv[D / 2];
 #pragma unroll
   for (int r = 0; r < D / 2; ++r) dk[r] = dv[r] = 0.f;
-  for (int i = 0; i < n; ++i) {
-    const int s = i & 1, q0 = i * AQ;
+  for (int i = 0; i < w; ++i) {
+    const int s = i & 1, q0 = tile(i) * AQ;
     float qseg[2], m[2], l[2], dl[2];
 #pragma unroll
     for (int ih = 0; ih < 2; ++ih) {
@@ -1137,7 +1248,7 @@ attention_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap qmap,
       promote(dk, part);
     }
     __syncthreads();  // every warp is done with buffer s and the pd/ds tiles
-    if (i + 2 < n && tid == 0) load(i + 2);
+    if (i + 2 < w && tid == 0) load(i + 2);
   }
 
 #pragma unroll
@@ -1177,14 +1288,14 @@ cudaError_t launch_attention_bwd_sm90(Rows<const __nv_bfloat16> q, Rows<const __
     return cudaErrorInvalidValue;
   const float scale = 1.f / sqrtf((float)D);
   const dim3 grid((L + 63) / 64, H, B);
-  size_t smem = bwd_sm90_smem<D>(false);
+  size_t smem = bwd_sm90_smem<D>(false, grid.x);
   cudaError_t err = allow_smem(attention_bwd_dq_sm90<D>, smem);
   if (err != cudaSuccess) return err;
   attention_bwd_dq_sm90<D><<<grid, 128, smem, stream>>>(
       qm, km, vm, dm, bias_row, seg_row, stat_m, stat_l, delta, dq, L, scale, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  smem = bwd_sm90_smem<D>(true);
+  smem = bwd_sm90_smem<D>(true, grid.x);
   auto dkdv = [&](auto kernel) {
     cudaError_t e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return e;
@@ -1657,7 +1768,7 @@ cudaError_t launch_attention_fwd(Rows<const T> q, Rows<const T> k, Rows<const T>
     if (!rows_map(&qm, q, B, L, H * D) || !rows_map(&km, k, B, L, H * D) ||
         !rows_map(&vm, v, B, L, H * D))
       return cudaErrorInvalidValue;
-    const size_t smem = fwd_sm90_smem<D>();
+    const size_t smem = fwd_sm90_smem<D>((L + AK - 1) / AK);
     cudaError_t err = allow_smem(attention_fwd_sm90<D>, smem);
     if (err != cudaSuccess) return err;
     attention_fwd_sm90<D><<<grid, 128, smem, stream>>>(qm, km, vm, bias_row, seg_row, o, stat_m,

@@ -34,20 +34,50 @@
 // column), the stream of the attention block's kernels: with one seed both
 // paths drop the same probabilities.
 //
-// What bounds it on the card: at [96, 512, 12, 64] bf16 the forward is
-// 4*L*L*D*B*H = 77 GFLOP against 4 x 75.5 MB of q, k, v read and o written,
-// so the bytes bound it (0.090 ms against 0.078 ms of tensor-core time);
-// the backward is 10*L*L*D*B*H = 193 GFLOP against 7 x 75.5 MB, so the
-// operations bound it. The bf16 forward runs on the tensor cores
-// (attention_fwd_sm90: q.k and p.v on wgmma, K/V tiles by TMA from a 3-D
-// map over the [B, L, H*D] rows, so q, k, v need 16-byte-aligned bases and
-// row distances); with dropout its Philox draws are work of the same size
-// on the integer units. The bf16 backward runs on the tensor cores too
-// (attention_bwd_dq_sm90, attention_bwd_dkdv_sm90; q, k, v and do by TMA),
-// forming q.k four times (three passes over the keys in the dq kernel, one
-// in dk/dv) and drawing the dropout mask three times. The fp32 kernels
-// compute on the CUDA cores, the block backward's kernels (delta pass,
-// dk/dv with ds written to a scratch, dq as a GEMM over it).
+// Packed rows: with segments the three bf16 kernels walk only the (query
+// tile, key tile) pairs of 64 rows where a query can see a key (tile_walk in
+// attention_tiles.cuh). Each block reads its batch item's seg_row (and the
+// bias) and finds each tile's range of segments >= 0 and whether it holds a
+// padding or closed row; a pair is walked where the two ranges meet or the
+// query tile holds such a row. The forward and the dq kernel loop over the
+// key tiles walked, in ascending order, in every pass (the TMA ring loads
+// only those; m and l are stored after the last one of pass 0, delta summed
+// after the last one of pass 1), the dk/dv kernel over the query tiles that
+// can see its key tile. Why it is exact: in a skipped pair every score of
+// every query row < L is kNeg or -inf, and every such row that is neither
+// padding nor closed has its own key, open and of its segment, in a walked
+// tile, so its m is far above kNeg; a skipped tile would add exp(kNeg - m) =
+// 0 to l and exact zeros to p.v, delta, ds, dq, dk and dv, and a leading
+// all-kNeg tile's (kNeg, count) is rescaled to 0 by the first real one. A
+// padding row sees only kNeg (its keys' bias is kNeg too), so every key
+// counts in its l: its tile walks them all. So o, dq, dk, dv and the
+// statistics keep their bits, for any seg_row. Without segments every tile
+// is walked. The attention block's forward (K1, K3) runs attention_fwd_sm90
+// too and skips alike on packed rows; K4 walks every tile from K3's m and
+// l, which keep their bits.
+//
+// What bounds it on the card: at [96, 512, 12, 64] bf16 on rows without
+// segments the forward is 4*L*L*D*B*H = 77 GFLOP against 4 x 75.5 MB of q, k,
+// v read and o written, so the bytes bound it (0.090 ms against 0.078 ms of
+// tensor-core time); the backward is 10*L*L*D*B*H = 193 GFLOP against 7 x
+// 75.5 MB, so the operations bound it. On the packed training rows (about
+// 4.2 segments a row, sum of segment^2 0.26 L^2) the kernels walk 47% of the
+// tile pairs, where only 26% of the scores are of one segment, and the bound
+// of the work within segments is the bytes for both. The bf16 forward runs
+// on the tensor cores (attention_fwd_sm90: q.k and p.v on wgmma, K/V tiles by
+// TMA from a 3-D map over the [B, L, H*D] rows, so q, k, v need
+// 16-byte-aligned bases and row distances); with dropout its Philox draws
+// are work of the same size on the integer units. The bf16 backward runs on
+// the tensor cores too (attention_bwd_dq_sm90, attention_bwd_dkdv_sm90; q,
+// k, v and do by TMA), forming q.k four times for each walked pair (three
+// passes over the keys in the dq kernel, one in dk/dv) and drawing the
+// dropout mask three times: what bounds it now, with each step's wgmma
+// waited on before the softmax arithmetic and no warp specialisation. At
+// D = 64 the dk/dv kernel is held to as few registers as let three blocks
+// share an SM, as many as its shared memory allows.
+// The fp32 kernels compute on the CUDA cores, the block backward's kernels
+// (delta pass, dk/dv with ds written to a scratch, dq as a GEMM over it),
+// and walk every tile.
 
 #include "attention_tiles.cuh"
 

@@ -42,12 +42,19 @@ Differences from the TPU kernels, all deliberate:
 
 Each kernel has a plain PyTorch version with the TPU kernel's rounding
 points beside it; a wrapper takes the plain version for CPU tensors only.
+
+With segments the bf16 kernels walk only the (query tile, key tile) pairs
+of 64 rows each where a query can see a key (``csrc/attention_tiles.cuh``,
+``tile_walk``), which gives the bits of the whole walk;
+:func:`walked_tiles` applies the same rule to a host batch, and
+:func:`flash_tile_share` gives the share of pairs walked.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from pl_bert_tpu_torch.ops import attention_block as ab
@@ -113,6 +120,51 @@ def flash_attention_bwd_plain(dout, q, k, v, bias_row=None, seg_row=None,
     dq = torch.einsum("bhlm,bmhd->blhd", ds, k.to(acc))
     dk = torch.einsum("bhlm,blhd->bmhd", ds, q.to(acc))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# --- the tiles the kernels walk ----------------------------------------------
+
+TILE = 64  # rows of a query or key tile
+
+
+def walked_tiles(segment_ids, open_rows=None) -> np.ndarray:
+    """bool [R, n, n]: which (query tile, key tile) pairs of ``TILE`` rows
+    the bf16 kernels walk on rows of ``segment_ids`` [..., L] (n = ⌈L/64⌉),
+    by their rule: a pair is walked where the least..largest segment ≥ 0
+    of the query tile meets that of the key tile, or where the query tile
+    holds a row that is padding (segment < 0) or not in ``open_rows``
+    ([..., L] bool: where the padding bias is open; None: everywhere).
+    Leading axes are folded into R."""
+    seg = np.asarray(segment_ids, dtype=np.float32)
+    L = seg.shape[-1]
+    seg = seg.reshape(-1, L)
+    n = -(-L // TILE)
+    valid = np.zeros((seg.shape[0], n * TILE), bool)
+    valid[:, :L] = True
+    s = np.zeros(valid.shape, np.float32)
+    s[:, :L] = seg
+    real = valid & (s >= 0)
+    closed = valid & ~real
+    if open_rows is not None:
+        closed[:, :L] |= ~np.asarray(open_rows, bool).reshape(-1, L)
+    shape = (seg.shape[0], n, TILE)
+    lo = np.where(real, s, np.inf).reshape(shape).min(-1)
+    hi = np.where(real, s, -np.inf).reshape(shape).max(-1)
+    pad = closed.reshape(shape).any(-1)
+    meet = (lo[:, :, None] <= hi[:, None, :]) & (lo[:, None, :] <= hi[:, :, None])
+    return pad[:, :, None] | meet
+
+
+def flash_tile_share(segment_ids, lengths=None) -> float:
+    """The share of (query tile, key tile) pairs the bf16 kernels walk on
+    a batch of packed rows: ``segment_ids`` [..., L] and ``lengths`` [...]
+    (the padding bias closes each row's positions from its length on; None:
+    no bias)."""
+    open_rows = None
+    if lengths is not None:
+        L = np.shape(segment_ids)[-1]
+        open_rows = np.arange(L) < np.asarray(lengths)[..., None]
+    return float(walked_tiles(segment_ids, open_rows).mean())
 
 
 # --- wrappers -----------------------------------------------------------------

@@ -12,8 +12,9 @@ Additions: a JSONL metrics file in the run dir (observability without
 network egress), throughput (steps/sec, and tokens/sec over the tokens
 the caller counts: the port's Trainer counts real, non-pad ones), and
 where the caller passes them, the mean host wait a step for the batch
-(``feed_wait_ms``) and the grapheme head's full-length fallbacks
-(``lm_head_fallbacks``) since the last record.
+(``feed_wait_ms``), the grapheme head's full-length fallbacks
+(``lm_head_fallbacks``) and the mean share of tile pairs the flash kernels
+walk on packed rows (``flash_tile_share``) since the last record.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ class MetricsLogger:
         self._window_steps = 0
         self._window_wait_s = None
         self._window_fallbacks = None
+        self._window_shares: list[float] = []
         if not self.enabled:
             return
         if wandb_project:
@@ -68,11 +70,13 @@ class MetricsLogger:
         self._file = open(os.path.join(log_dir, "metrics.jsonl"), "a", buffering=1)
 
     def log_step(self, step: int, epoch: int, metrics: dict, tokens_per_batch: int = 0,
-                 feed_wait_s: float | None = None, lm_head_fallbacks: int | None = None):
+                 feed_wait_s: float | None = None, lm_head_fallbacks: int | None = None,
+                 flash_tile_share: float | None = None):
         """Record one step's metrics; ``feed_wait_s`` (host seconds the
         step waited for its batch) and ``lm_head_fallbacks`` (the
         grapheme head's full-length fallbacks in the step) are summed up
-        to the next record.
+        to the next record, ``flash_tile_share`` (the step's share of tile
+        pairs the flash kernels walk) averaged.
 
         ``metrics`` values may be device arrays — they are buffered as-is
         and only materialized every ``log_interval`` steps, so logging
@@ -92,6 +96,8 @@ class MetricsLogger:
             self._window_wait_s = (self._window_wait_s or 0.0) + feed_wait_s
         if lm_head_fallbacks is not None:
             self._window_fallbacks = (self._window_fallbacks or 0) + lm_head_fallbacks
+        if flash_tile_share is not None:
+            self._window_shares.append(flash_tile_share)
         if step % self.log_interval != 0:
             # keep the newest metrics so flush() can emit the final
             # partial window at the end of training
@@ -147,7 +153,10 @@ class MetricsLogger:
             record["feed_wait_ms"] = 1e3 * self._window_wait_s / max(self._window_steps, 1)
         if self._window_fallbacks is not None:
             record["lm_head_fallbacks"] = self._window_fallbacks
+        if self._window_shares:
+            record["flash_tile_share"] = float(np.mean(self._window_shares))
         self._window_steps, self._window_wait_s, self._window_fallbacks = 0, None, None
+        self._window_shares = []
         return record
 
     def log_validation(

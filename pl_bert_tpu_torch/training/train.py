@@ -70,6 +70,7 @@ from pl_bert_tpu_torch.data.packed_store import (
 from pl_bert_tpu_torch.data.pipeline import Waits, build_dataloader, prefetch, to_device
 from pl_bert_tpu_torch.models.albert import build_model, init_params
 from pl_bert_tpu_torch.ops import masked_ce
+from pl_bert_tpu_torch.ops.flash_attention import flash_tile_share
 from pl_bert_tpu_torch.preprocess.shard_engine import load_processed_dataset
 from pl_bert_tpu_torch.parallel import collectives as col
 from pl_bert_tpu_torch.parallel.mesh import local_rows, make_mesh, shard_model
@@ -334,6 +335,15 @@ def real_tokens(batch) -> int:
     micro-batches too, or a ``Batch``), counted from its lengths."""
     lengths = batch["lengths"] if isinstance(batch, dict) else batch.lengths
     return int(np.asarray(lengths).sum())
+
+
+def tile_share(batch) -> float | None:
+    """The share of (query tile, key tile) pairs that the flash kernels
+    walk on a host batch's packed rows (``flash_tile_share``), or None for
+    a batch without segments."""
+    if not isinstance(batch, dict) or batch.get("segment_ids") is None:
+        return None
+    return flash_tile_share(batch["segment_ids"], batch["lengths"])
 
 
 def lm_head_capacity_warning(tp, dp) -> str | None:
@@ -756,17 +766,18 @@ class Trainer:
             start_batch = 0
             accum = tp.grad_accum_steps
             # each step's real (non-pad) tokens, from the host batches'
-            # lengths: a ragged final accum group's empty micro-batches add 0
+            # lengths: a ragged final accum group's empty micro-batches add
+            # 0; and the share of tiles the flash kernels walk on its rows
             if accum > 1:
                 feed = (
-                    (self._put(b, axis=1), c, real_tokens(b))
+                    (self._put(b, axis=1), c, real_tokens(b), tile_share(b))
                     for b, c in self._group_micro(it, accum)
                 )
             else:
-                feed = ((self._put(b), 1, real_tokens(b)) for b in it)
+                feed = ((self._put(b), 1, real_tokens(b), tile_share(b)) for b in it)
             # the host-to-device copy starts inside the prefetch thread,
             # so it overlaps the previous step's device compute
-            for device_batch, consumed, tokens in prefetch(feed, size=2, waits=waits):
+            for device_batch, consumed, tokens, share in prefetch(feed, size=2, waits=waits):
                 # the grapheme head's full-length fallbacks in this step
                 # alone: validation never runs inside it
                 fell = masked_ce.FALLBACKS.count
@@ -778,6 +789,7 @@ class Trainer:
                 self.metrics.log_step(
                     self.current_step, epoch, metrics, tokens,
                     feed_wait_s=waits.seconds - waited, lm_head_fallbacks=fallbacks,
+                    flash_tile_share=share,
                 )
                 waited = waits.seconds
                 if self.current_step % tp.save_interval == 0:

@@ -5,19 +5,34 @@ On the CPU the port's wrappers run their plain versions. Tolerances:
 fp32 rtol 1e-5 / atol 5e-6 (the gate of tests/test_flash_attention.py:
 the same arithmetic in another summation order); bf16 one bf16 ulp of
 the largest value (2^-8 relative: both sides round p and the output to
-bf16 at the same points, after differently ordered fp32 sums)."""
+bf16 at the same points, after differently ordered fp32 sums).
+
+The rule by which the bf16 kernels skip the tiles a packed row's segments
+blank is held here on the CPU (``walked_tiles``); the kernels that follow
+it are held against their plain versions on a CUDA card, in the tests
+marked ``cuda``, which skip without one. On a machine with a card (no
+JAX needed)::
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_flash_attention.py
+"""
 
 import dataclasses
+import json
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
-from pl_bert_tpu.ops import flash_attention as jax_fa
-from pl_bert_tpu.ops.attention import xla_attention
+try:  # the JAX kernels the CPU tests compare with; a card's machine has no JAX
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from pl_bert_tpu.ops import flash_attention as jax_fa
+    from pl_bert_tpu.ops.attention import xla_attention
+except ImportError:
+    jax = None
+
 from pl_bert_tpu_torch.config import ModelParams
 from pl_bert_tpu_torch.models.albert import build_model, init_params
 from pl_bert_tpu_torch.ops import attention_block as ab
@@ -324,3 +339,253 @@ def test_one_state_dict_drives_all_three_paths():
         other.load_state_dict(base.state_dict(), strict=True)
         np.testing.assert_allclose(other(ids, mask).detach().numpy(), want.detach().numpy(),
                                    rtol=1e-4, atol=1e-5)
+
+
+# --- the tiles the bf16 kernels walk on packed rows ---------------------------
+
+
+def _walk_sets(walked):
+    """{query tile: the key tiles walked} of one row of ``walked_tiles``."""
+    return {q: set(np.flatnonzero(row).tolist()) for q, row in enumerate(walked)}
+
+
+ALL4 = {0, 1, 2, 3}
+
+
+@pytest.mark.parametrize("seg,lengths,walks", [
+    # two segments across the tile edges, a padded tail: the tail tile walks all
+    ([0] * 100 + [1] * 100 + [-1] * 56, 200, {0: {0, 1}, 1: ALL4, 2: {1, 2, 3}, 3: ALL4}),
+    # one-token segments: only the diagonal
+    (list(range(256)), 256, {q: {q} for q in range(4)}),
+    # ids reused out of order: walks that are not intervals
+    ([0] * 64 + [1] * 64 + [0] * 64 + [1] * 64, 256, {0: {0, 2}, 1: {1, 3}, 2: {0, 2}, 3: {1, 3}}),
+    # one segment: every pair
+    ([7] * 256, 256, {q: ALL4 for q in range(4)}),
+    # all padding but one token: every query tile holds padding
+    ([0] + [-1] * 255, 1, {q: ALL4 for q in range(4)}),
+    # rows past L are no padding: L = 100, two tiles
+    ([0] * 50 + [1] * 50, 100, {0: {0, 1}, 1: {0, 1}}),
+    # three segments inside one tile, the next tiles apart
+    ([0] * 20 + [1] * 20 + [2] * 88 + [3] * 128, 256, {0: {0, 1}, 1: {0, 1}, 2: {2, 3},
+                                                       3: {2, 3}}),
+])
+def test_walked_tiles_of_hand_made_rows(seg, lengths, walks):
+    seg = np.array([seg])
+    open_rows = np.arange(seg.shape[1])[None] < lengths
+    assert _walk_sets(fa.walked_tiles(seg, open_rows)[0]) == walks
+    total = sum(len(w) for w in walks.values())
+    assert fa.flash_tile_share(seg, np.array([lengths])) == total / len(walks) ** 2
+
+
+def test_a_closed_bias_makes_its_query_tile_walk_every_key_tile():
+    """A real row whose key the padding bias closes may see nothing but
+    masked scores, so its tile walks every key tile, as a padding row's;
+    no bias (``open_rows`` None) closes nothing."""
+    seg = np.array([[0] * 64 + [1] * 64])
+    open_rows = np.ones((1, 128), bool)
+    open_rows[0, 70] = False
+    assert _walk_sets(fa.walked_tiles(seg, open_rows)[0]) == {0: {0}, 1: {0, 1}}
+    assert _walk_sets(fa.walked_tiles(seg)[0]) == {0: {0}, 1: {1}}
+    # leading axes (stacked micro-batches) fold into the rows
+    stacked = np.stack([np.concatenate([seg, seg]), np.concatenate([seg, seg])])
+    assert fa.walked_tiles(stacked).shape == (4, 2, 2)
+
+
+def _packed_layout(rng, L, reuse=False):
+    """One random row: segments of 1-90 tokens (ids ascending, or drawn
+    from 0-3 with ``reuse``), then padding; → (segment ids, length)."""
+    length = int(rng.integers(1, L + 1)) if rng.random() < 0.7 else L
+    seg = np.full(L, -1, np.int64)
+    at, sid = 0, 0
+    while at < length:
+        n = int(rng.integers(1, 91))
+        seg[at:min(at + n, length)] = int(rng.integers(0, 4)) if reuse else sid
+        at, sid = at + n, sid + 1
+    return seg, length
+
+
+@pytest.mark.parametrize("L", [64, 130, 200, 512])
+def test_monotone_rows_walk_contiguous_intervals(L):
+    """On rows whose segment ids ascend (as packing lays them out), each
+    query tile walks an interval of key tiles that holds its own."""
+    rng = np.random.default_rng(L)
+    rows = [_packed_layout(rng, L) for _ in range(64)]
+    seg = np.stack([r[0] for r in rows])
+    open_rows = np.arange(L)[None] < np.array([r[1] for r in rows])[:, None]
+    for walked in fa.walked_tiles(seg, open_rows):
+        for own, row in enumerate(walked):
+            idx = np.flatnonzero(row)
+            assert own in idx
+            assert (np.diff(idx) == 1).all()
+
+
+@pytest.mark.parametrize("reuse", [False, True])
+@pytest.mark.parametrize("L", [150, 200, 320, 448])
+def test_no_visible_pair_falls_in_a_skipped_tile(L, reuse):
+    """Brute force over [L, L] on random rows (ids reused and out of order
+    too, open rows closed at random): every query row that is padding or
+    closed walks every key tile, and every pair of one segment lies in a
+    walked tile; and every probability the plain version gives in a
+    skipped tile is exactly 0, so skipping it adds exact zeros."""
+    rng = np.random.default_rng(L + 7 * reuse)
+    rows = [_packed_layout(rng, L, reuse) for _ in range(12)]
+    seg = np.stack([r[0] for r in rows])
+    open_rows = np.arange(L)[None] < np.array([r[1] for r in rows])[:, None]
+    open_rows &= rng.random((len(rows), L)) > 0.02
+    walked = fa.walked_tiles(seg, open_rows)
+    tiles = np.arange(L) // fa.TILE
+    pair_walked = walked[:, tiles[:, None], tiles[None, :]]  # [R, L, L]
+    blind = (seg < 0) | ~open_rows
+    assert pair_walked[blind].all()
+    same = (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] >= 0)
+    assert pair_walked[same].all()
+    assert not pair_walked.all()  # the rule skips something on these rows
+    bias = torch.from_numpy(np.where(open_rows, 0.0, np.finfo(np.float32).min)
+                            .astype(np.float32))
+    bias_row, seg_row = ab.rows(bias[:, None, None, :], torch.from_numpy(seg), len(rows), L)
+    gen = torch.Generator().manual_seed(L)
+    q, k = (torch.randn(len(rows), L, 2, 64, generator=gen) for _ in range(2))
+    p = fa._probs(q, k, bias_row, seg_row)
+    skipped = torch.from_numpy(~pair_walked)[:, None].expand_as(p)
+    assert (p[skipped] == 0).all()
+
+
+def test_metrics_logger_writes_the_mean_tile_share(tmp_path):
+    from pl_bert_tpu_torch.training.metrics import MetricsLogger
+
+    m = MetricsLogger(str(tmp_path), log_interval=2)
+    for step, share in ((1, 0.4), (2, 0.5), (3, None), (4, None)):
+        m.log_step(step, 1, {"loss": 1.0}, 10, flash_tile_share=share)
+    m.close()
+    records = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
+    assert records[0]["flash_tile_share"] == pytest.approx(0.45)
+    assert "flash_tile_share" not in records[1]
+
+
+def test_trainer_tile_share_needs_segments():
+    from pl_bert_tpu_torch.data.collate import Batch
+    from pl_bert_tpu_torch.training.train import tile_share
+
+    seg = np.array([[0] * 100 + [1] * 100 + [-1] * 56])
+    assert tile_share({"segment_ids": seg, "lengths": np.array([200])}) == 13 / 16
+    assert tile_share({"lengths": np.array([200])}) is None
+    batch = Batch(*(np.zeros((1, 256), np.int32) for _ in range(4)), lengths=np.array([200]))
+    assert tile_share(batch) is None
+
+
+# --- the bf16 kernels on a card (marked cuda: skip without one) ----------------
+
+# test_torch_cuda.py's gates of the kernels against their plain versions:
+# max-abs as a share of the largest reference value, and relative L2
+CARD_BF16 = (6e-2, 1e-2)
+LAYOUTS = ["crossing", "one_token", "one_segment", "padded_tail", "all_pad_but_one",
+           "reused_ids"]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _card_layout(name, L, seed):
+    """Three rows of one layout: (segment ids [3, L], lengths [3])."""
+    rng = np.random.default_rng(seed)
+    seg = np.full((3, L), -1, np.int64)
+    lengths = [L, L, L]
+
+    def fill(r, length, sizes, ids=None):
+        at = 0
+        for i, n in enumerate(sizes):
+            if at >= length:
+                break
+            seg[r, at:min(at + n, length)] = i if ids is None else ids[i]
+            at += n
+        lengths[r] = length
+
+    many = lambda lo, hi: rng.integers(lo, hi, size=L).tolist()  # noqa: E731
+    if name == "crossing":  # segments across tile edges, one row full
+        fill(0, L, many(20, 150))
+        fill(1, L - 37, many(20, 150))
+        fill(2, L * 2 // 3, many(60, 100))
+    elif name == "one_token":
+        fill(0, L, [1] * L)
+        fill(1, L, [1] * 40 + many(2, 9))
+        fill(2, L - 11, [1] * L)
+    elif name == "one_segment":
+        fill(0, L, [L])
+        fill(1, L * 2 // 3, [L])
+        fill(2, 65, [L])
+    elif name == "padded_tail":
+        fill(0, L - 1, many(30, 90))
+        fill(1, L // 2 + 7, many(30, 90))
+        fill(2, 65, many(30, 90))
+    elif name == "all_pad_but_one":  # and a row with no token at all
+        fill(0, 1, [1])
+        fill(1, L - 5, many(10, 70))
+        fill(2, 0, [])
+    else:  # reused_ids: ids drawn from 0-3, out of order and repeated
+        ids = rng.integers(0, 4, size=L).tolist()
+        fill(0, L, many(5, 80), ids)
+        fill(1, L - 21, many(5, 80), ids[::-1])
+        fill(2, L // 3, many(1, 20), ids)
+    return seg, np.array(lengths)
+
+
+def _card_case(dev, layout, L, D, H=2, seed=0):
+    from pl_bert_tpu_torch.models.albert import attention_bias_from_mask
+
+    seg, lengths = _card_layout(layout, L, seed)
+    gen = torch.Generator(dev).manual_seed(seed + L + D)
+    q, k, v, dout = (torch.randn(3, L, H, D, device=dev, generator=gen).to(torch.bfloat16)
+                     for _ in range(4))
+    valid = torch.from_numpy(np.arange(L)[None] < lengths[:, None]).to(dev)
+    bias_row, seg_row = ab.rows(attention_bias_from_mask(valid),
+                                torch.from_numpy(seg).to(dev), 3, L)
+    return q, k, v, dout, bias_row, seg_row
+
+
+def _card_close(got, ref):
+    share, rel = CARD_BF16
+    g, r = got.float(), ref.float()
+    assert torch.isfinite(g).all()
+    assert (g - r).abs().max() <= share * max(1.0, float(r.abs().max()))
+    assert (g - r).norm() / r.norm() <= rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("L", [200, 512])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_tile_skipping_kernels_match_plain(dev, layout, L, D, rate):
+    """K7 and K8 in bf16, which walk only the tiles the segments can see,
+    against their plain versions, which form every score, on packed rows
+    of each layout; the plain ones drop with the kernels' own mask."""
+    q, k, v, dout, bias_row, seg_row = _card_case(dev, layout, L, D)
+    seed = 23 if rate else None
+    keep = ab.dropout_mask(23, rate, 3, 2, L, dev) if rate else None
+    out = fa.flash_attention_fwd(q, k, v, bias_row, seg_row, rate, seed)
+    grads = fa.flash_attention_bwd(dout, q, k, v, bias_row, seg_row, rate, seed)
+    ref = fa.flash_attention_plain(q, k, v, bias_row, seg_row, rate, seed, keep=keep)
+    rgrads = fa.flash_attention_bwd_plain(dout, q, k, v, bias_row, seg_row, rate, seed,
+                                          keep=keep)
+    torch.cuda.synchronize()
+    for got, want in [(out, ref), *zip(grads, rgrads)]:
+        _card_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("layout", ["crossing", "reused_ids", "all_pad_but_one"])
+def test_tile_skipping_kernels_repeat_bit_for_bit(dev, layout, D):
+    """Two calls on the same inputs give the same bits: o, dq, dk, dv and
+    the recomputed row max and denominator."""
+    q, k, v, dout, bias_row, seg_row = _card_case(dev, layout, 512, D, H=4, seed=3)
+    runs = [(fa.flash_attention_fwd(q, k, v, bias_row, seg_row, 0.1, 29),
+             *fa._launch_bwd(dout, q, k, v, bias_row, seg_row, 0.1, 29)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

@@ -245,3 +245,11 @@ def test_prefetch_sums_its_consumers_waits():
     waits = Waits()
     assert list(prefetch(iter(range(5)), size=2, waits=waits)) == list(range(5))
     assert waits.seconds > 0
+
+
+def test_packed_records_carry_the_flash_tile_share(traced_run):
+    """Each record of the packed run carries the window's mean share of
+    tile pairs the flash kernels walk on its rows, as the feed's host
+    batches give it."""
+    steps = [r for r in traced_run["records"] if "loss" in r]
+    assert steps and all(0 < r["flash_tile_share"] <= 1 for r in steps)
