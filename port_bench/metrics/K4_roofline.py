@@ -1,10 +1,10 @@
 """K4's share of its roofline, %: the attention block's backward (the do
 projection, the delta, dk/dv and dq passes, the dx projection). The
-least time the traced steps' inputs need for its work
-(``cost.kernel_bound_s``) over its kernels' device time in the trace,
+least time the traced steps' inputs need for its work (the model
+family's ``kernel_bound_s``) over its kernels' device time in the trace,
 found by name."""
 
-from port_bench import cost, trace
+from port_bench import trace
 
 KERNELS = ("attention_bwd", "gemm_bias<", "gemm_bias_sm90<true>")
 
@@ -14,5 +14,6 @@ def read(w: dict):
     spent = trace.device_seconds(tr, KERNELS) if tr else 0.0
     if spent <= 0:
         return None
-    bound = sum(cost.kernel_bound_s("K4", w["model"], m) for step in tr["stats"] for m in step)
+    bound = sum(w["family"].kernel_bound_s("K4", w["model"], m)
+                for step in tr["stats"] for m in step)
     return 100.0 * bound / spent

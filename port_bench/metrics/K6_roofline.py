@@ -1,9 +1,9 @@
 """K6's share of its roofline, %: its backward, with the dgamma/dbeta
 reduction. The least time the traced steps' inputs need for its work
-(``cost.kernel_bound_s``) over its kernels' device time in the trace,
-found by name."""
+(the model family's ``kernel_bound_s``) over its kernels' device time in
+the trace, found by name."""
 
-from port_bench import cost, trace
+from port_bench import trace
 
 KERNELS = ("ln_bwd",)
 
@@ -13,5 +13,6 @@ def read(w: dict):
     spent = trace.device_seconds(tr, KERNELS) if tr else 0.0
     if spent <= 0:
         return None
-    bound = sum(cost.kernel_bound_s("K6", w["model"], m) for step in tr["stats"] for m in step)
+    bound = sum(w["family"].kernel_bound_s("K6", w["model"], m)
+                for step in tr["stats"] for m in step)
     return 100.0 * bound / spent

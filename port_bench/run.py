@@ -12,10 +12,15 @@ pinned feed, the step, the loss logging), timing the whole window on
 the host clock and each step with CUDA events; ``--trace 1`` records the
 window's first steps with ``torch.profiler`` and reports the per-layer
 metrics instead of the end-to-end ones. Then the program's state is
-freed and the reference (``reference.py``) follows the first steps from
-the same weights on the batches it derives itself (``feed.py``); the
-numbers of ``compare.py`` against ``limits/<workload>.json`` decide
-``correct``. The last line of standard output is the result.
+freed and the reference follows the first steps from the same weights
+on the batches it derives itself; the numbers of ``compare.py`` against
+``limits/<workload>.json`` decide ``correct``. The last line of
+standard output is the result.
+
+What belongs to the model's architecture (the corpus, the weights, the
+batches' derivation and counts, the reference, the work counts) comes
+from the model family that the configuration names
+(``families/<family>.py``; its interface is ``spec.py``'s).
 """
 
 from __future__ import annotations
@@ -26,7 +31,6 @@ T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import gc  # noqa: E402
-import itertools  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
@@ -56,15 +60,16 @@ class Loop:
     (grouped into ``grad_accum_steps`` micro-batches), put on the card
     by its prefetch thread, then its step and its loss logging. Keeps
     each batch's counts, the first ``keep`` batches whole, and each
-    step's feed wait (host clock), CUDA events and loss."""
+    step's feed wait (host clock), CUDA events and loss. The cell's
+    family picks the arrays kept and counts each batch."""
 
-    def __init__(self, trainer, keep: int, separator: int, masked_share: float) -> None:
+    def __init__(self, trainer, keep: int, cell: dict) -> None:
         from pl_bert_tpu_torch.data.pipeline import prefetch
         from pl_bert_tpu_torch.training.train_step import batch_to_arrays
 
         self.trainer, self.keep = trainer, keep
         self._prefetch, self._to_arrays = prefetch, batch_to_arrays
-        self.separator, self.masked_share = separator, masked_share
+        self.cell, self.family = cell, cell["family"]
         self.epoch, self._feed = 1, None
         self.kept: list = []
         self.stats: list = []
@@ -72,18 +77,15 @@ class Loop:
         self.steps: list = []
 
     def _record(self, it):
-        from port_bench.cost import batch_stats
-
         keys = None
         for b in it:
             arrays = b if isinstance(b, dict) else self._to_arrays(b)
             if keys is None:
-                keys = [k for k in arrays
-                        if k != "token_ids" or self.trainer.use_token_ids]
+                keys = self.family.kept(self.cell, arrays)
             arrays = {k: arrays[k] for k in keys}
             if len(self.kept) < self.keep:
                 self.kept.append({k: v.copy() for k, v in arrays.items()})
-            self.stats.append(batch_stats(arrays, self.separator, self.masked_share))
+            self.stats.append(self.family.stats(self.cell, arrays))
             yield b
 
     def _open(self) -> None:
@@ -170,24 +172,10 @@ def _quantile(values: list, q: float) -> float:
     return ordered[min(len(ordered) - 1, max(0, math.ceil(q * len(ordered)) - 1))]
 
 
-def _model_dict(cell: dict) -> dict:
-    cfg = cell["config"]
-    return {**cfg["model_params"], "type_vocab_size": cfg["type_vocab_size"]}
-
-
 def derived_batches(cell: dict, corpus: list, seed: int, n_batches: int) -> list:
-    """The first ``n_batches`` training batches, as ``feed.py`` works
-    them out."""
-    from port_bench import feed
-
-    tr = cell["traffic"]
-    dp, tp = tr["dataset_params"], tr["training_params"]
-    L, B = dp["max_seq_length"], tp["batch_size"]
-    if dp["sequence_packing"]:
-        it = feed.packed_batches(corpus, L, B, seed, dp["word_separator"])
-    else:
-        it = feed.host_masked_batches(corpus, L, B, seed, dp)
-    return list(itertools.islice(it, n_batches))
+    """The first ``n_batches`` training batches, as the cell's family
+    works them out."""
+    return cell["family"].batches(cell, corpus, seed, n_batches)
 
 
 def follow(cell: dict, weights: dict, batches: list, seed: int, rounding: str = "fp32"):
@@ -195,16 +183,12 @@ def follow(cell: dict, weights: dict, batches: list, seed: int, rounding: str = 
     compared steps: {"losses", "grads" (first step), "params"}."""
     import torch
 
-    from port_bench.reference import Reference
-
-    cfg = cell["config"]
-    accum = cfg["training_params"]["grad_accum_steps"]
+    accum = cell["config"]["training_params"]["grad_accum_steps"]
     steps = len(batches) // accum
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        ref = Reference(_model_dict(cell), cfg["training_params"],
-                        cell["traffic"]["dataset_params"], weights, rounding)
+        ref = cell["family"].reference(cell, weights, rounding)
         losses, grads = [], None
         for k in range(steps):
             losses.append(ref.step(batches[k * accum:(k + 1) * accum], k, seed))
@@ -222,30 +206,26 @@ def start(root: Path, workload: str, seed: int, device: str = "cuda", hook=None)
     ``hook(trainer)`` (``faults.py``: the harness's tests and the sweep)
     may break the timed path underneath."""
     from port_bench import spec
-    from port_bench.corpus import make_corpus
-    from port_bench.symbols import SEPARATOR_ID
-    from port_bench.weights import make_weights
 
     os.environ.setdefault("USE_FLAX", "0")
     os.environ.setdefault("USE_TF", "0")
     cell = spec.cell(root, workload)
+    family = cell["family"]
     n_compared = int(cell["limits"]["steps"])
     tp_seed = training_seed(seed)
     config = _program_config(cell, tp_seed)
     accum = config.training_params.grad_accum_steps
-    data = cell["traffic"]["dataset_params"]
-    masked_share = data["word_pred_prob"] * (data["phoneme_mask_prob"] + data["replace_prob"])
 
     from pl_bert_tpu_torch.training.train import Trainer
 
-    corpus = make_corpus(cell["traffic"]["corpus"], seed)
+    corpus = family.corpus(cell, seed)
     logs = tempfile.TemporaryDirectory(prefix="port_bench-")
     trainer = Trainer(config, logs.name, resuming=False, dataset=corpus, device=device)
-    weights = make_weights(_model_dict(cell), seed, trainer.device)
+    weights = family.weights(cell, seed, trainer.device)
     trainer.model.load_state_dict(weights, strict=True)
     if hook is not None:
         hook(trainer)
-    loop = Loop(trainer, n_compared * accum, SEPARATOR_ID, masked_share)
+    loop = Loop(trainer, n_compared * accum, cell)
     b1 = config.training_params.adam_b1
     prog = {"losses": []}
     for k in range(n_compared):
@@ -277,8 +257,8 @@ def release(st: dict) -> None:
 
 def judge(st: dict) -> tuple[dict, dict]:
     """The numbers of ``compare.py`` for a released set-up: the feed's
-    batches against ``feed.py``'s, the program's steps against the
-    reference's; → (numbers, the reference's readings)."""
+    batches against the family's derivation, the program's steps against
+    the reference's; → (numbers, the reference's readings)."""
     from port_bench import compare
 
     batches = derived_batches(st["cell"], st["corpus"], st["tp_seed"],
@@ -343,7 +323,7 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     peak_window = torch.cuda.max_memory_allocated() if cuda else 0
     losses = torch.stack([s["loss"].float().reshape(()) for s in window]).cpu()
     step_ms = [s["events"][0].elapsed_time(s["events"][1]) for s in window] if cuda else []
-    w = {"model": _model_dict(cell), "steps": len(window),
+    w = {"family": cell["family"], "model": cell["family"].model(cell), "steps": len(window),
          "window_s": window_s, "step_ms": step_ms,
          "feed_wait_s": [s["wait_s"] for s in window], "stats": [s["stats"] for s in window],
          "peak_bytes": peak_window, "trace": None}
